@@ -1,0 +1,184 @@
+"""Public wrappers around the CUDA kernels: ``repro.kernels.ops`` for torch.
+
+Responsibilities, as in the reference: pad shapes to the reference's tiles
+(lanes of 128, replica blocks of 8-multiples), pre-scale coefficients, draw
+the initial phases, and expose the functional API.  Dispatch follows the
+tensors' device: the kernel wrappers launch their CUDA kernel on a CUDA
+tensor (or raise) and run their plain version on a CPU tensor.
+
+The padding rules are the reference's exactly, at its default replica blocks
+(256 for the anneal, 512 for the energy): ``r_block = min(block, pad8(R))``
+and ``r_pad = pad(R, r_block)``.  The phases are drawn at
+``(r_pad, n_pad)`` with the reference's threefry stream, so the same key
+starts every anneal from the same phases bit for bit.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Tuple
+
+import torch
+
+from repro_torch import prng
+from repro_torch.kernels import ref as kref
+from repro_torch.kernels.cobi_dynamics import (
+    cobi_fused_best_cuda,
+    cobi_readout_cuda,
+    cobi_trajectory_cuda,
+)
+from repro_torch.kernels.ising_energy import LANE, ising_energy_cuda
+
+SLOT_PAD = 8  # slot axis of the fused readout is padded to this multiple
+ANNEAL_REPLICA_BLOCK = 256  # the reference's replica_block defaults
+ENERGY_REPLICA_BLOCK = 512
+
+
+def _pad_to(x: int, mult: int) -> int:
+    return ((x + mult - 1) // mult) * mult
+
+
+def _padded(x: torch.Tensor, shape: tuple) -> torch.Tensor:
+    out = torch.zeros(shape, dtype=torch.float32, device=x.device)
+    out[tuple(slice(0, d) for d in x.shape)] = x.to(torch.float32)
+    return out
+
+
+def dynamics_scale(h: torch.Tensor, j: torch.Tensor) -> torch.Tensor:
+    """Normalizer so one Euler step moves phases by O(dt)."""
+    denom = 2.0 * j.abs().sum(dim=-1).max() + h.abs().max()
+    return torch.clamp(denom, min=1e-9)
+
+
+@dataclasses.dataclass(frozen=True)
+class AnnealOperands:
+    """The padded operands of one solo anneal, as the kernels take them."""
+
+    j_scaled: torch.Tensor  # (n_pad, n_pad) dynamics couplings
+    h_scaled: torch.Tensor  # (1, n_pad)
+    j_orig: torch.Tensor  # (n_pad, n_pad) scoring couplings, as given
+    h_orig: torch.Tensor  # (1, n_pad)
+    phi0: torch.Tensor  # (r_pad, n_pad) initial phases
+    n_pad: int
+    r_pad: int
+
+
+def anneal_operands(
+    h: torch.Tensor,
+    j: torch.Tensor,
+    key: torch.Tensor,
+    *,
+    replicas: int,
+    prescaled: bool = False,
+) -> AnnealOperands:
+    """Scale, pad and draw the initial phases exactly as the reference does:
+    ``r_block = min(256, pad8(R))``, ``r_pad = pad(R, r_block)``,
+    phases ``uniform(key, (r_pad, n_pad), 0, 2 pi)`` on h's device.  The
+    scoring copies are the unscaled coefficients, zero-padded."""
+    h32, j32 = h.to(torch.float32), j.to(torch.float32)
+    if prescaled:
+        h_s, j_s = h32, j32
+    else:
+        scale = dynamics_scale(h, j)
+        h_s, j_s = h32 / scale, j32 / scale
+    n = h.shape[-1]
+    n_pad = _pad_to(max(n, LANE), LANE)
+    r_block = min(ANNEAL_REPLICA_BLOCK, _pad_to(replicas, 8))
+    r_pad = _pad_to(replicas, r_block)
+    phi0 = prng.uniform(key, (r_pad, n_pad), 0.0, 2.0 * math.pi, device=h.device)
+    return AnnealOperands(
+        j_scaled=_padded(j_s, (n_pad, n_pad)),
+        h_scaled=_padded(h_s[None], (1, n_pad)),
+        j_orig=_padded(j32, (n_pad, n_pad)),
+        h_orig=_padded(h32[None], (1, n_pad)),
+        phi0=phi0,
+        n_pad=n_pad,
+        r_pad=r_pad,
+    )
+
+
+def solo_slot(n_pad: int, replicas: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fused epilogue's (mask (n_pad, SLOT_PAD), reads (1, SLOT_PAD)) for
+    one instance: every lane in slot 0 with ``replicas`` valid reads; the
+    padding slots have no reads and come back +inf."""
+    mask = torch.zeros((n_pad, SLOT_PAD), dtype=torch.float32, device=device)
+    mask[:, 0] = 1.0
+    reads = torch.zeros((1, SLOT_PAD), dtype=torch.float32, device=device)
+    reads[0, 0] = float(replicas)
+    return mask, reads
+
+
+def cobi_anneal(
+    h: torch.Tensor,
+    j: torch.Tensor,
+    key: torch.Tensor,
+    *,
+    replicas: int = 256,
+    steps: int = 300,
+    dt: float = 0.35,
+    ks_max: float = 1.0,
+    reduce: str = "none",
+    topk: int | None = None,
+    prescaled: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Anneal ``replicas`` independent oscillator networks on h's device.
+
+    ``reduce`` selects the readout (all score against the *given* problem):
+
+      * ``"none"`` -- (spins (R, N) int8, energies (R,)): anneal, then a
+        separate energy launch;
+      * ``"best"`` -- (spins (N,) int8, energy ()): one fused launch, equal to
+        ``"none"`` + first argmin;
+      * ``"topk"`` -- (spins (k, N) int8, energies (k,) ascending, stable);
+        ``topk=None`` means k = replicas.
+
+    ``prescaled=True`` skips the dynamics normalization.
+    """
+    if reduce not in ("none", "best", "topk"):
+        raise ValueError(f"unknown reduce mode {reduce!r}")
+    op = anneal_operands(h, j, key, replicas=replicas, prescaled=prescaled)
+    n = h.shape[-1]
+    anneal = dict(steps=steps, dt=dt, ks_max=ks_max)
+    jp, hp, ju, hu, phi0 = op.j_scaled, op.h_scaled, op.j_orig, op.h_orig, op.phi0
+
+    if reduce == "none":
+        phi = cobi_trajectory_cuda(jp, hp, phi0, **anneal)
+        spins = kref.ref_cobi_spins(phi[:replicas, :n])
+        return spins, ising_energy(spins, h, j)
+
+    if reduce == "best":
+        mask, reads = solo_slot(op.n_pad, replicas, h.device)
+        best_e, best_s = cobi_fused_best_cuda(jp, hp, ju, hu, mask, reads, phi0, **anneal)
+        return best_s[0, :n].to(torch.int8), best_e[0]
+
+    k = replicas if topk is None else min(int(topk), replicas)
+    s_out, e_out = cobi_readout_cuda(jp, hp, ju, hu, phi0, **anneal)
+    energies = e_out[:replicas]
+    order = torch.argsort(energies, stable=True)[:k]  # ties keep replica order
+    return s_out[order][:, :n].to(torch.int8), energies[order]
+
+
+def ising_energy(
+    spins: torch.Tensor,
+    h: torch.Tensor,
+    j: torch.Tensor,
+) -> torch.Tensor:
+    """Ising energies of (R, N) or (N,) spins in {-1, +1} against one
+    instance ``h (N,), j (N, N)`` -> (R,) / scalar float32."""
+    if spins.ndim == 3:
+        raise NotImplementedError(
+            "stacked (B, R, N) energies port with the chip farm (ROADMAP queue 1, item 7)"
+        )
+    squeeze = spins.ndim == 1
+    if squeeze:
+        spins = spins[None]
+    r, n = spins.shape
+    n_pad = _pad_to(max(n, LANE), LANE)
+    r_block = min(ENERGY_REPLICA_BLOCK, _pad_to(r, 8))
+    r_pad = _pad_to(r, r_block)
+    sp = _padded(spins, (r_pad, n_pad))
+    hp = _padded(h[None], (1, n_pad))
+    jp = _padded(j, (n_pad, n_pad))
+    e = ising_energy_cuda(sp, hp, jp)[:r]
+    return e[0] if squeeze else e
