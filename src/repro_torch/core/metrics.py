@@ -32,7 +32,7 @@ def reference_bounds(problem: EsProblem, key=None) -> Bounds:
         return Bounds(obj_max=hi, obj_min=lo, exact=True)
     raise NotImplementedError(
         f"C({problem.n}, {problem.m}) exceeds exact enumeration; the Tabu "
-        "fallback of reference_bounds ports with Tabu (ROADMAP queue 1, item 4)"
+        "fallback of reference_bounds ports with Tabu (ROADMAP queue 1: host solvers)"
     )
 
 

@@ -3,7 +3,7 @@
 ``HashedBowEncoder``: deterministic hashed bag-of-words with a signed random
 projection per word (numpy + blake2b), training-free, bit-identical to the
 reference's.  The LM-backbone encoder ports with the model stack (ROADMAP
-queue 1, item 10).
+queue 1: the encoder backbone).
 """
 
 from __future__ import annotations

@@ -7,6 +7,11 @@ of the sources, so a stale library is never loaded.  :func:`build_all` starts
 one ``nvcc`` per source at once; a failed build raises with the compiler's
 output.  Nothing here runs at import time: this module is imported on
 machines with no CUDA toolkit.
+
+Thread-safe: the chip farm launches from its background drive thread while
+the caller may launch from its own, so one module lock serializes building
+and loading, and each build writes a temporary file named by process and
+thread before it moves into place.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -39,6 +45,7 @@ _ARGTYPES = {
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_LOCK = threading.RLock()  # guards _LIBS and the builds; library() nests build_all()
 
 
 def _nvcc() -> str:
@@ -64,13 +71,18 @@ def build_all(names=SOURCES) -> dict[str, Path]:
     """Compile every library not yet built, one ``nvcc`` per source, all
     started together.  Returns {name: path}; raises if any build fails.
     Each build's ptxas report is kept beside its library as ``.log``."""
+    with _LOCK:
+        return _build_all(names)
+
+
+def _build_all(names) -> dict[str, Path]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     targets = {name: _target(name) for name in names}
     procs = {}
     for name, out in targets.items():
         if out.exists():
             continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        tmp = out.with_suffix(f".{os.getpid()}-{threading.get_ident()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
@@ -91,14 +103,15 @@ def build_all(names=SOURCES) -> dict[str, Path]:
 def library(name: str) -> ctypes.CDLL:
     """The loaded library ``name`` (built first if needed), with every entry's
     ``argtypes`` and ``restype`` declared."""
-    lib = _LIBS.get(name)
-    if lib is None:
-        lib = ctypes.CDLL(str(build_all((name,))[name]))
-        for fn, argtypes in _ARGTYPES[name].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        _LIBS[name] = lib
-    return lib
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build_all((name,))[name]))
+            for fn, argtypes in _ARGTYPES[name].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            _LIBS[name] = lib
+        return lib
 
 
 def check(err: int, what: str) -> None:

@@ -5,9 +5,17 @@
 //   cobi_readout_pallas     (_cobi_readout_kernel)       -> cobi_readout
 //   cobi_fused_best_pallas  (_cobi_fused_best_kernel,
 //                            _block_best, _carry_best)   -> cobi_fused_best
-// Every entry takes a batch index B, so the batched Pallas twins
-// (cobi_trajectory_batched_pallas, cobi_fused_best_batched_pallas) bind to
-// the same kernels with B > 1.
+//   cobi_trajectory_batched_pallas  (_cobi_batched_kernel)   -> cobi_trajectory, B > 1
+//   cobi_fused_best_batched_pallas  (_cobi_fused_best_batched_kernel)
+//                                                            -> cobi_fused_best, B > 1
+// Every entry takes a batch index B: grid (R / BR, B), one packed chip bin
+// (or solo instance) per blockIdx.y.  The chip farm's drains launch B bins
+// at once; a bin packs several jobs block-diagonally, one slot per job.
+//
+// Packed == solo, bit for bit: the Euler loop keeps one accumulator per row
+// and adds the lanes in order (cobi_anneal.cuh), so a job's lanes in a bin
+// see the other slots' lanes only as exact zero products (their couplings
+// to the job are 0), and a job's packed anneal equals its solo anneal.
 //
 // What bounds it on an H100: operations, and at the main path's sizes the
 // latency of one block.  Each of `steps` Euler steps does a (2R x n) @ (n x n)
@@ -168,9 +176,14 @@ __global__ void fused_best_blocks_kernel(
   __syncthreads();
   mask += (size_t)b * n * s_slots;
   reads += (size_t)b * s_slots;
+  // Slot energies: the lane densities folded through the 0/1 lane->slot
+  // mask, lanes in order.  Exact only because chip instances are integers
+  // (h, J in [-14, 14], spins +-1): every density and partial sum is an
+  // integer far below 2^24, so no float32 sum rounds and this order, the
+  // readout's row_sum and the plain version's einsum all agree.
   for (int t = i; t < BR * s_slots; t += blockDim.x) {
     const int rr = t / s_slots, sl = t % s_slots;
-    float acc = 0.0f;  // mask is 0/1: with one slot this is row_sum exactly
+    float acc = 0.0f;
     for (int q = 0; q < n; ++q) acc = fmaf(el[rr * n + q], mask[q * s_slots + sl], acc);
     es[t] = (float)(blk * BR + rr) < reads[sl] ? acc : INFINITY;
   }
@@ -265,6 +278,8 @@ extern "C" int cobi_readout(const void* j, const void* h, const void* ju,
 
 // mask (B, N, S), reads (B, S); scratch blk_e (B, R/8, S) and blk_rows
 // (B, R/8, S, N) are the caller's; outputs e_out (B, S), s_out (B, S, N).
+// 1 <= S <= N: a bin holds at most one job per lane; the slot scratch
+// (BR*S + S floats) grows the block's shared memory with S.
 extern "C" int cobi_fused_best(const void* j, const void* h, const void* ju,
                                const void* hu, const void* mask,
                                const void* reads, const void* phi0,
@@ -272,7 +287,7 @@ extern "C" int cobi_fused_best(const void* j, const void* h, const void* ju,
                                void* s_out, int b, int r, int n, int s_slots,
                                int steps, float dt, float ks_max,
                                void* stream) {
-  if (bad_shape(b, r, n) || steps < 0 || s_slots < 1 || s_slots > 64)
+  if (bad_shape(b, r, n) || steps < 0 || s_slots < 1 || s_slots > n)
     return (int)cudaErrorInvalidValue;
   const Layout lay = layout(n, (size_t)BR * s_slots + s_slots);
   cudaError_t err = allow_smem(fused_best_blocks_kernel, lay.bytes);

@@ -1,11 +1,14 @@
 """Batched Ising energy E_r = h.s_r + s_r^T J s_r: the CUDA kernel's wrapper
 and its plain version.
 
-Port of ``repro.kernels.ising_energy.ising_energy_pallas``, the paper's
-per-iteration objective evaluation.  The kernel (``csrc/ising_energy.cu``)
-takes tile-aligned shapes: ``ops.ising_energy`` pads, as the reference does.
-On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
-launches the kernel or raises.
+Ports of ``repro.kernels.ising_energy``: ``ising_energy_pallas``, the
+paper's per-iteration objective evaluation (:func:`ising_energy_cuda`), and
+its stacked twin ``ising_energy_batched_pallas``, which scores every job of a
+chip-farm drain against its own instance in one launch
+(:func:`ising_energy_batched_cuda`).  Both bind to one kernel
+(``csrc/ising_energy.cu``, grid (R / 8, B)), which takes tile-aligned shapes:
+``ops.ising_energy`` pads, as the reference does.  On a CPU tensor a wrapper
+runs its plain version; on a CUDA tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -41,20 +44,49 @@ def ising_energy_cuda(
     j: torch.Tensor,  # (N, N)
 ) -> torch.Tensor:
     """Energies (R,) of R spin rows; the kernel on CUDA, plain on CPU."""
-    r, n = spins.shape
     if spins.device.type == "cpu":
         return ising_energy_plain(spins, h, j)
-    if n % LANE or r % BR or h.shape != (1, n) or j.shape != (n, n):
-        raise ValueError(f"untiled shapes: spins {spins.shape}, h {h.shape}, j {j.shape}")
-    check_cuda_args(spins, h, j)
-    out = torch.empty(r, dtype=torch.float32, device=spins.device)
-    err = _build.library("ising_energy").ising_energy(
-        spins.data_ptr(), h.data_ptr(), j.data_ptr(), out.data_ptr(),
-        1, r, n, _build.stream_of(spins),
-    )
-    _build.check(err, "ising_energy")
+    out = _energy(spins[None], h[None], j[None])[0]
     ising_energy_cuda.launches += 1
     return out
 
 
 ising_energy_cuda.launches = 0
+
+
+def ising_energy_batched_plain(
+    spins: torch.Tensor, h: torch.Tensor, j: torch.Tensor
+) -> torch.Tensor:
+    """Plain version: spins (B, R, N), h (B, 1, N), j (B, N, N) -> (B, R)."""
+    return kref.ref_ising_energy_batched(spins, h[:, 0], j)
+
+
+def ising_energy_batched_cuda(
+    spins: torch.Tensor,  # (B, R, N) f32 in {-1, 0, +1}; R % 8 == 0, N % LANE == 0
+    h: torch.Tensor,  # (B, 1, N)
+    j: torch.Tensor,  # (B, N, N)
+) -> torch.Tensor:
+    """Energies (B, R): row r of instance b against (h[b], j[b]), one launch."""
+    if spins.device.type == "cpu":
+        return ising_energy_batched_plain(spins, h, j)
+    out = _energy(spins, h, j)
+    ising_energy_batched_cuda.launches += 1
+    return out
+
+
+ising_energy_batched_cuda.launches = 0
+
+
+def _energy(spins: torch.Tensor, h: torch.Tensor, j: torch.Tensor) -> torch.Tensor:
+    """Launch ``ising_energy`` on (B, R, N) spins; returns (B, R)."""
+    b, r, n = spins.shape
+    if n % LANE or r % BR or h.shape != (b, 1, n) or j.shape != (b, n, n):
+        raise ValueError(f"untiled shapes: spins {spins.shape}, h {h.shape}, j {j.shape}")
+    check_cuda_args(spins, h, j)
+    out = torch.empty((b, r), dtype=torch.float32, device=spins.device)
+    err = _build.library("ising_energy").ising_energy(
+        spins.data_ptr(), h.data_ptr(), j.data_ptr(), out.data_ptr(),
+        b, r, n, _build.stream_of(spins),
+    )
+    _build.check(err, "ising_energy")
+    return out

@@ -24,11 +24,17 @@ import torch
 from repro_torch import prng
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.cobi_dynamics import (
+    cobi_fused_best_batched_cuda,
     cobi_fused_best_cuda,
     cobi_readout_cuda,
+    cobi_trajectory_batched_cuda,
     cobi_trajectory_cuda,
 )
-from repro_torch.kernels.ising_energy import LANE, ising_energy_cuda
+from repro_torch.kernels.ising_energy import (
+    LANE,
+    ising_energy_batched_cuda,
+    ising_energy_cuda,
+)
 
 SLOT_PAD = 8  # slot axis of the fused readout is padded to this multiple
 ANNEAL_REPLICA_BLOCK = 256  # the reference's replica_block defaults
@@ -40,6 +46,10 @@ def _pad_to(x: int, mult: int) -> int:
 
 
 def _padded(x: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """``x`` zero-padded to ``shape`` as float32 (``x`` itself when it is
+    already that: the kernels only read their operands)."""
+    if tuple(x.shape) == tuple(shape) and x.dtype == torch.float32 and x.is_contiguous():
+        return x
     out = torch.zeros(shape, dtype=torch.float32, device=x.device)
     out[tuple(slice(0, d) for d in x.shape)] = x.to(torch.float32)
     return out
@@ -164,12 +174,15 @@ def ising_energy(
     h: torch.Tensor,
     j: torch.Tensor,
 ) -> torch.Tensor:
-    """Ising energies of (R, N) or (N,) spins in {-1, +1} against one
-    instance ``h (N,), j (N, N)`` -> (R,) / scalar float32."""
+    """Ising energies for spins in {-1, +1}.  Two layouts:
+
+      * (R, N) or (N,) spins against one instance ``h (N,), j (N, N)`` ->
+        (R,) / scalar float32;
+      * (B, R, N) spins against a stack ``h (B, N), j (B, N, N)`` -> (B, R),
+        in one launch (the chip farm's scoring).
+    """
     if spins.ndim == 3:
-        raise NotImplementedError(
-            "stacked (B, R, N) energies port with the chip farm (ROADMAP queue 1, item 7)"
-        )
+        return _ising_energy_stacked(spins, h, j)
     squeeze = spins.ndim == 1
     if squeeze:
         spins = spins[None]
@@ -182,3 +195,133 @@ def ising_energy(
     jp = _padded(j, (n_pad, n_pad))
     e = ising_energy_cuda(sp, hp, jp)[:r]
     return e[0] if squeeze else e
+
+
+def _ising_energy_stacked(spins: torch.Tensor, h: torch.Tensor, j: torch.Tensor) -> torch.Tensor:
+    b, r, n = spins.shape
+    if h.shape != (b, n) or j.shape != (b, n, n):
+        raise ValueError(f"stacked energy shapes: spins {spins.shape}, h {h.shape}, j {j.shape}")
+    n_pad = _pad_to(max(n, LANE), LANE)
+    r_block = min(ENERGY_REPLICA_BLOCK, _pad_to(r, 8))
+    r_pad = _pad_to(r, r_block)
+    sp = _padded(spins, (b, r_pad, n_pad))
+    hp = _padded(h[:, None], (b, 1, n_pad))
+    jp = _padded(j, (b, n_pad, n_pad))
+    return ising_energy_batched_cuda(sp, hp, jp)[:, :r]
+
+
+# ---------------------------------------------------------------------------
+# Batched (chip-farm) anneals: B instances, block-diagonal packs welcome.
+# ---------------------------------------------------------------------------
+
+
+def cobi_trajectory_batch(
+    j_scaled: torch.Tensor,  # (B, N, N) pre-scaled stack
+    h_scaled: torch.Tensor,  # (B, N)
+    phi0: torch.Tensor,  # (B, R, N) initial phases
+    *,
+    steps: int,
+    dt: float,
+    ks_max: float,
+) -> torch.Tensor:
+    """Anneal B independent (possibly packed) instances in one launch.
+
+    The farm pre-scales each block-diagonal sub-block by its own
+    ``dynamics_scale`` before packing, so a packed instance's dynamics match
+    the instance-at-a-time path block by block.  Returns final phases
+    (B, R, N).
+    """
+    b, r, n = phi0.shape
+    n_pad = _pad_to(max(n, LANE), LANE)
+    r_block = min(ANNEAL_REPLICA_BLOCK, _pad_to(r, 8))
+    r_pad = _pad_to(r, r_block)
+    jp = _padded(j_scaled, (b, n_pad, n_pad))
+    hp = _padded(h_scaled[:, None], (b, 1, n_pad))
+    pp = _padded(phi0, (b, r_pad, n_pad))
+    phi = cobi_trajectory_batched_cuda(jp, hp, pp, steps=steps, dt=dt, ks_max=ks_max)
+    return phi[:, :r, :n]
+
+
+def cobi_anneal_batch(
+    h: torch.Tensor,  # (B, N)
+    j: torch.Tensor,  # (B, N, N)
+    key: torch.Tensor,
+    *,
+    replicas: int = 256,
+    steps: int = 300,
+    dt: float = 0.35,
+    ks_max: float = 1.0,
+    prescaled: bool = False,
+    reduce: str = "none",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched :func:`cobi_anneal` over a stack of B instances on h's device.
+
+    ``reduce="none"`` returns (spins (B, R, N) int8 in {-1, +1}, energies
+    (B, R) f32 of the *given* problems); ``reduce="best"`` fuses the readout
+    into the anneal launch and returns only each instance's winner: (spins
+    (B, N) int8, energies (B,) f32) -- bit-identical to ``"none"`` + argmin
+    on integer instances.  ``prescaled=True`` skips the per-instance dynamics
+    normalization (the farm packer applies it per block before packing).
+    The phases are ``uniform(key, (B, replicas, N), 0, 2 pi)``, as the
+    reference draws them.
+    """
+    b, n = h.shape
+    h32, j32 = h.to(torch.float32), j.to(torch.float32)
+    if prescaled:
+        h_s, j_s = h32, j32
+    else:
+        scale = torch.stack([dynamics_scale(hb, jb) for hb, jb in zip(h, j)])  # (B,)
+        h_s, j_s = h32 / scale[:, None], j32 / scale[:, None, None]
+    phi0 = prng.uniform(key, (b, replicas, n), 0.0, 2.0 * math.pi, device=h.device)
+    if reduce == "best":
+        mask = torch.ones((b, n, 1), dtype=torch.float32, device=h.device)
+        reads = torch.full((b, 1), float(replicas), dtype=torch.float32, device=h.device)
+        best_e, best_s = cobi_anneal_packed_best(
+            j_s, h_s, j32, h32, mask, reads, phi0, steps=steps, dt=dt, ks_max=ks_max,
+        )
+        return best_s[:, 0, :n], best_e[:, 0]
+    if reduce != "none":
+        raise ValueError(f"unknown reduce mode {reduce!r}")
+    phi = cobi_trajectory_batch(j_s, h_s, phi0, steps=steps, dt=dt, ks_max=ks_max)
+    spins = kref.ref_cobi_spins(phi)
+    return spins, ising_energy(spins, h, j)
+
+
+def cobi_anneal_packed_best(
+    j_scaled: torch.Tensor,  # (B, N, N) pre-scaled dynamics couplings (packs welcome)
+    h_scaled: torch.Tensor,  # (B, N)
+    j_orig: torch.Tensor,  # (B, N, N) original scoring couplings (block-diagonal)
+    h_orig: torch.Tensor,  # (B, N)
+    mask: torch.Tensor,  # (B, N, S) 0/1 lane->slot assignment
+    reads: torch.Tensor,  # (B, S) valid-read count per slot (0 = padding slot)
+    phi0: torch.Tensor,  # (B, R, N) initial phases
+    *,
+    steps: int,
+    dt: float,
+    ks_max: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused anneal -> readout -> best-of over B (possibly packed) instances.
+
+    The farm hot path: one launch returns (best energies (B, S) f32, best
+    spins (B, S, N) int8) -- each slot's first-argmin read scored against the
+    ORIGINAL coefficients, with replicas past the slot's read budget ignored.
+    Padding slots (``reads == 0``) come back as +inf / garbage; callers index
+    only real slots.  Replica spins and phases never leave the device.
+    """
+    b, r, n = phi0.shape
+    s_slots = mask.shape[-1]
+    n_pad = _pad_to(max(n, LANE), LANE)
+    s_pad = _pad_to(max(s_slots, SLOT_PAD), SLOT_PAD)
+    r_block = min(ANNEAL_REPLICA_BLOCK, _pad_to(r, 8))
+    r_pad = _pad_to(r, r_block)
+    e_out, s_out = cobi_fused_best_batched_cuda(
+        _padded(j_scaled, (b, n_pad, n_pad)),
+        _padded(h_scaled[:, None], (b, 1, n_pad)),
+        _padded(j_orig, (b, n_pad, n_pad)),
+        _padded(h_orig[:, None], (b, 1, n_pad)),
+        _padded(mask, (b, n_pad, s_pad)),
+        _padded(reads[:, None], (b, 1, s_pad)),
+        _padded(phi0, (b, r_pad, n_pad)),
+        steps=steps, dt=dt, ks_max=ks_max,
+    )
+    return e_out[:, :s_slots], s_out[:, :s_slots, :n].to(torch.int8)

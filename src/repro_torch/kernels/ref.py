@@ -88,3 +88,11 @@ def ref_ising_energy(spins: torch.Tensor, h: torch.Tensor, j: torch.Tensor) -> t
     return s @ h.to(torch.float32) + torch.einsum(
         "ri,ij,rj->r", s, j.to(torch.float32), s
     )
+
+
+def ref_ising_energy_batched(spins: torch.Tensor, h: torch.Tensor, j: torch.Tensor) -> torch.Tensor:
+    """E_br for (B, R, N) spins against per-instance (B, N) h, (B, N, N) J."""
+    s = spins.to(torch.float32)
+    lin = torch.einsum("brn,bn->br", s, h.to(torch.float32))
+    quad = torch.einsum("bri,bij,brj->br", s, j.to(torch.float32), s)
+    return lin + quad

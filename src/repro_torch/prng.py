@@ -5,7 +5,9 @@ The reference draws every random number of the summarization pipeline from
 ``jax_threefry_partitionable=True``).  This module reproduces the four calls
 the pipeline makes -- ``key``, ``split``, ``bits`` and ``uniform`` -- so that
 the port, handed the same key words, rounds the same integer instances and
-starts its anneals from the same phases, bit for bit.
+starts its anneals from the same phases, bit for bit.  :func:`uniform_many`
+is ``jax.vmap(jax.random.uniform)`` over a stack of keys, as the chip farm
+draws each job's phases.
 
 A key is a ``(2,)`` int64 tensor on the CPU holding the two uint32 words of
 ``jax.random.key_data(key)``.  Keys are threaded explicitly through every
@@ -13,8 +15,8 @@ call; there is no global generator state.
 
 The hash runs on int64 tensors masked to 32 bits (CPU ``uint32`` tensors have
 no ``+`` or ``>>`` in torch), so the same code runs on CPU and CUDA tensors.
-``bits`` and ``uniform`` draw on the card unless the caller passes
-``device="cpu"``.
+``bits``, ``uniform`` and ``uniform_many`` draw on the card unless the caller
+passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -59,13 +61,18 @@ def _words(k: torch.Tensor) -> tuple[int, int]:
     return int(w[0]), int(w[1])
 
 
-def _hash_iota(k: torch.Tensor, shape: Sequence[int], device) -> tuple:
-    """Hash the flat counter of ``shape`` (the partitionable iota: the high
-    word is 0 below 2**32 elements, the low word is the flat index)."""
+def _iota(shape: Sequence[int], device) -> torch.Tensor:
+    """The flat counter of ``shape`` (the partitionable iota: the high word
+    is 0 below 2**32 elements, the low word is the flat index)."""
     size = math.prod(shape)
     if size >= 2**32:
         raise NotImplementedError("random draws of 2**32 or more elements")
-    lo = torch.arange(size, dtype=torch.int64, device=device)
+    return torch.arange(size, dtype=torch.int64, device=device)
+
+
+def _hash_iota(k: torch.Tensor, shape: Sequence[int], device) -> tuple:
+    """Hash the flat counter of ``shape`` under one key."""
+    lo = _iota(shape, device)
     k1, k2 = _words(k)
     return threefry2x32(k1, k2, torch.zeros_like(lo), lo)
 
@@ -98,8 +105,32 @@ def uniform(
     ``minval``.
     """
     device = resolve_device(device)
-    b = bits(k, shape, device=device)
+    return _to_uniform(bits(k, shape, device=device), minval, maxval)
+
+
+def _to_uniform(b: torch.Tensor, minval: float, maxval: float) -> torch.Tensor:
     f = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=device)
+    lo = torch.tensor(minval, dtype=torch.float32, device=b.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=b.device)
     return torch.maximum(lo, f * (hi - lo) + lo)
+
+
+def uniform_many(
+    keys: torch.Tensor,
+    shape: Sequence[int],
+    minval: float = 0.0,
+    maxval: float = 1.0,
+    *,
+    device=None,
+) -> torch.Tensor:
+    """``jax.vmap(lambda k: jax.random.uniform(k, shape, float32, minval,
+    maxval))(keys)`` for (K, 2) key words: (K, *shape), row k drawn from key
+    k alone.  One threefry hash over (K, size): each key's words ride as
+    (K, 1) columns."""
+    device = resolve_device(device)
+    keys = torch.as_tensor(keys, dtype=torch.int64).to(device)
+    if keys.ndim != 2 or keys.shape[1] != 2:
+        raise ValueError(f"keys are (K, 2) words, got shape {tuple(keys.shape)}")
+    lo = _iota(shape, device)[None]
+    b1, b2 = threefry2x32(keys[:, :1], keys[:, 1:], torch.zeros_like(lo), lo)
+    return _to_uniform(b1 ^ b2, minval, maxval).reshape(keys.shape[0], *shape)

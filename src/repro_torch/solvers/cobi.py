@@ -4,7 +4,7 @@ The chip (59 spins, all-to-all, integer couplings in [-14, +14]) is modeled
 by the oscillator-dynamics kernels (kernels/cobi_dynamics.py).  Each "read"
 is one anneal from a random phase state.  Integer couplings are enforced:
 passing a non-integer instance raises, as the chip's programming interface
-would.  The chip farm's ``solve_batch`` ports with the farm.
+would.  :func:`solve_batch` serves many instances at once on the chip farm.
 """
 
 from __future__ import annotations
@@ -57,3 +57,36 @@ def solve(
     if reduce == "best":
         spins, energies = spins[None], energies[None]
     return SolverResult(spins=spins, energies=energies)
+
+
+def solve_batch(
+    instances,
+    keys,
+    *,
+    n_chips: int = 4,
+    reads: int = 8,
+    steps: int = 400,
+    dt: float = 0.35,
+    ks_max: float = 1.2,
+    device=None,
+    check: bool = True,
+    reduce: str = "none",
+    policy: str = "manual",
+) -> "list[SolverResult]":
+    """Solve many instances at once on a virtual chip farm.
+
+    Block-diagonally packs the instances onto ``n_chips`` simulated COBI
+    chips and anneals them in one batched kernel launch (see
+    ``repro_torch.farm``); results are per-instance and bit-identical to what
+    each instance would get from the farm alone.  ``policy`` selects the
+    farm's drain policy (results are bit-identical to ``"manual"``);
+    ``device=None`` means the card.  For scheduling control use
+    ``repro_torch.farm.CobiFarm`` directly.
+    """
+    from repro_torch.farm import solve_many  # farm imports this module; lazy import
+
+    return solve_many(
+        instances, keys, n_chips=n_chips, reads=reads, steps=steps,
+        dt=dt, ks_max=ks_max, device=device, check=check, reduce=reduce,
+        policy=policy,
+    )

@@ -27,6 +27,8 @@ from repro_torch.interop import carry_across
 WRAPPERS = (
     tcobi.cobi_trajectory_cuda, tcobi.cobi_readout_cuda,
     tcobi.cobi_fused_best_cuda, tenergy.ising_energy_cuda,
+    tcobi.cobi_trajectory_batched_cuda, tcobi.cobi_fused_best_batched_cuda,
+    tenergy.ising_energy_batched_cuda,
 )
 
 
@@ -167,6 +169,45 @@ def test_cpu_tensors_run_plain_versions_and_count_no_launch():
     h, j, key = _anneal_pair(20, 8)
     for reduce in ("none", "best", "topk"):
         tops.cobi_anneal(h, j, key, replicas=8, steps=20, reduce=reduce)
+    for reduce in ("none", "best"):
+        tops.cobi_anneal_batch(h[None], j[None], key, replicas=8, steps=20, reduce=reduce)
     assert [w.launches for w in WRAPPERS] == before
     with pytest.raises(ValueError, match="reduce"):
         tops.cobi_anneal(h, j, key, replicas=8, steps=20, reduce="all")
+
+
+def test_library_builds_once_when_two_threads_ask_at_once(monkeypatch, tmp_path):
+    """The farm's drive thread and the caller may both make the first
+    launch: one build, one loaded library, for both."""
+    import threading
+    import time
+
+    from repro_torch.kernels import _build
+
+    builds = []
+
+    def slow_build(names):
+        builds.append(tuple(names))
+        time.sleep(0.2)  # both threads are inside library() by now
+        return {name: tmp_path / f"{name}.so" for name in names}
+
+    class FakeLib:
+        def __getattr__(self, fn):
+            entry = type("Entry", (), {})()
+            object.__setattr__(self, fn, entry)
+            return entry
+
+    monkeypatch.setattr(_build, "_LIBS", {})
+    monkeypatch.setattr(_build, "_build_all", slow_build)
+    monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: FakeLib())
+    got = []
+    threads = [threading.Thread(target=lambda: got.append(_build.library("cobi_dynamics")))
+               for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=10)
+        assert not t.is_alive()
+    assert builds == [("cobi_dynamics",)]
+    assert len(got) == 2 and got[0] is got[1]
+    assert got[0].cobi_fused_best.argtypes == _build._ARGTYPES["cobi_dynamics"]["cobi_fused_best"]

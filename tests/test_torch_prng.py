@@ -69,3 +69,17 @@ def test_uniform_phi0_matches(r_pad, n_pad):
 def test_key_interop_rejects_bad_shape():
     with pytest.raises(ValueError):
         carry_across("key", np.zeros(3, np.uint32))
+
+
+@pytest.mark.parametrize("k,shape", [(1, (8, 128)), (5, (16, 128)), (64, (3, 7))])
+def test_uniform_many_matches_vmapped_uniform(k, shape):
+    """The farm's per-job phases: jax.vmap(jax.random.uniform) over a stack
+    of keys, one hash over (K, size)."""
+    keys = jax.random.split(jax.random.key(k), k)
+    want = jax.vmap(lambda x: jax.random.uniform(x, shape, jnp.float32, 0.0, 2.0 * jnp.pi))(keys)
+    words = torch.tensor(np.asarray(jax.random.key_data(keys)).astype(np.int64))
+    got = prng.uniform_many(words, shape, 0.0, 2.0 * np.pi, device="cpu")
+    assert got.shape == (k, *shape) and got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    with pytest.raises(ValueError, match=r"\(K, 2\)"):
+        prng.uniform_many(words[:, :1], shape, device="cpu")

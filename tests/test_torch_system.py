@@ -115,20 +115,29 @@ def test_solve_es_without_device_raises_without_gpu():
         solve_es(tp, _key(jax.random.key(0)), SolveConfig(**CFG))
 
 
-@pytest.mark.parametrize("entry", ["bits", "uniform", "problem_from_sentences", "carry_across"])
+@pytest.mark.parametrize("entry", ["bits", "uniform", "problem_from_sentences", "carry_across",
+                                   "uniform_many", "CobiFarm", "solve_many", "solve_batch"])
 def test_entry_points_default_to_the_card(entry):
     """Without ``device=`` every entry point that makes tensors asks for the
     card, and raises here, where there is none."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid here")
     from repro_torch import prng
+    from repro_torch.farm import CobiFarm, solve_many
+    from repro_torch.solvers.cobi import solve_batch
 
+    _, tp = _system_instance()
+    ising = improved_ising(tp)
     calls = {
         "bits": lambda: prng.bits(prng.key(0), (4,)),
         "uniform": lambda: prng.uniform(prng.key(0), (4,)),
         "problem_from_sentences": lambda: problem_from_sentences(
             synthetic_document(7, 8), m=3),
         "carry_across": lambda: carry_across("es", np.ones(3), np.eye(3), m=1, lam=0.5),
+        "uniform_many": lambda: prng.uniform_many(prng.split(prng.key(0), 2), (4,)),
+        "CobiFarm": lambda: CobiFarm(2),
+        "solve_many": lambda: solve_many([ising], [prng.key(0)], check=False),
+        "solve_batch": lambda: solve_batch([ising], [prng.key(0)], check=False),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
