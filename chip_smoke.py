@@ -32,9 +32,21 @@ Phases, each of which must pass or the script exits non-zero:
      instances through ``solve_batch(reduce="none")``, the two-launch drain,
      whose first argmins equal the fused winners.  Launch counts are held
      against what the drains imply;
+  3c. the MCMC kernels against their plain versions, bitwise (spins and
+     energies): both proposal modes, reduce none and best, B = 3 instances,
+     R = 16 over replica blocks of 8 and 16, chunks of 32, 64 and 128, the
+     fused best over the first 3 reads, float-normal and chip-integer
+     instances, and one 200-spin instance (256 lanes, J from global memory);
+  4c. the MCMC family on the main path: the 20-sentence document through
+     ``solve_es(SolveConfig(solver="mcmc"))`` (10 iterations x 8 reads x 50
+     sweeps) inline and through ``McmcPoolBackend(4)``; the 100-sentence
+     document decomposed, inline and through the bank; the farm mix's 16
+     documents inline and through the bank; each pair bitwise equal, with
+     launch counts, wall times and receipt totals;
   5. time every kernel, its plain version and its bound (at the padded
      shapes the kernels take, and at the instances' own n spins and reads);
-     the batched kernels at the 16-document drain's shape;
+     the batched kernels at the 16-document drain's shape; the MCMC kernels
+     at the main path's shape (B = 1, R = 8, 128 lanes, 50 sweeps);
   6. print the ``kernels`` JSON line, the card line, and last the result line.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.  Without
@@ -43,6 +55,7 @@ a CUDA device, or without the repository around it, it fails.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -65,6 +78,10 @@ TRAJ_TOL = 2e-4  # rtol = atol at 50 steps: the reference's kernel-vs-oracle bou
 # synthetic_document(100 + i, n), m = 5, lambda = 0.5, 6 iterations.
 FARM_SIZES = [10, 14, 18, 22, 26, 30, 34, 38, 12, 16, 20, 24, 28, 32, 36, 40]
 FARM_ITERATIONS = 6
+MCMC_SWEEPS = 50  # SolveConfig's 400 steps at 8 steps a sweep
+# SolveConfig(solver="mcmc") on synthetic_document(7, 20), m = 6, key 0:
+# the JAX package's selection on the CPU.
+MCMC_DIRECT_SELECTION = [1, 4, 8, 9, 10, 12]
 
 
 def fail(msg: str) -> None:
@@ -117,6 +134,16 @@ def work(name: str, r: int, n: int, s: int) -> tuple[float, float]:
                             f32 * (2 * n * n + 2 * n + n * s + s + r * n + s + s * n)),
         "cobi_readout": (anneal + score, f32 * (2 * n * n + 2 * n + 2 * r * n + r)),
     }[name.removesuffix("_batched")]
+
+
+def mcmc_work(name: str, r: int, n: int, proposals: int, sweeps: int) -> tuple[float, float]:
+    """(FLOP, bytes) of one MCMC launch on r replicas of n lanes with
+    ``proposals`` live proposals a sweep: a rank-1 field update (2 r n) per
+    proposal plus f0 = s0 J (2 r n n); J, h and s0 read once, the outputs
+    (every replica's energy and spins, or the winner's) written once."""
+    flops = sweeps * proposals * 2 * r * n + 2 * r * n * n
+    out = r + r * n if name == "mcmc_sweep_batched" else 1 + n
+    return flops, 4 * (n * n + n + r * n + out)
 
 
 def batched_work(name: str, shapes) -> tuple[float, float]:
@@ -178,8 +205,9 @@ def main() -> None:
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import cobi_dynamics as cd
     from repro_torch.kernels import ising_energy as ie
+    from repro_torch.kernels import mcmc_dynamics as md
     from repro_torch.kernels import ref as kref
-    from repro_torch.farm import CobiFarm
+    from repro_torch.farm import CobiFarm, McmcPoolBackend
     from repro_torch.obs import Observability
     from repro_torch.solvers import cobi as cobi_solver
     from repro_torch.solvers import ising_solver
@@ -214,6 +242,8 @@ def main() -> None:
         "cobi_trajectory_batched": cd.cobi_trajectory_batched_cuda,
         "cobi_fused_best_batched": cd.cobi_fused_best_batched_cuda,
         "ising_energy_batched": ie.ising_energy_batched_cuda,
+        "mcmc_sweep_batched": md.mcmc_sweep_batched,
+        "mcmc_fused_best_batched": md.mcmc_fused_best_batched,
     }
 
     def reset_counts() -> None:
@@ -410,6 +440,68 @@ def main() -> None:
     print("100-slot bin (S=100 padded to 104): ok")
     torch.cuda.synchronize()
 
+    # ------------------------------------------------------------ 3c. MCMC kernels
+    def mcmc_operands(instances, keys, replicas, reads):
+        """Stacked operands as ops.mcmc_anneal builds them for one instance:
+        J (B, L, L), h (B, 1, L), s0 (B, R, L), seeds (B, 4), params (B, 4)."""
+        lanes = -(-max(q.n for q in instances) // 128) * 128
+        b = len(instances)
+        jp = torch.zeros((b, lanes, lanes), device=dev)
+        hp = torch.zeros((b, 1, lanes), device=dev)
+        s0, seeds, params = [], [], []
+        for i, (q, k) in enumerate(zip(instances, keys)):
+            jp[i, :q.n, :q.n], hp[i, 0, :q.n] = q.j, q.h
+            sd = kref.mcmc_seeds(k)
+            seeds.append(sd)
+            s0.append(kref.mcmc_init_spins(sd[0], replicas, lanes, device=dev))
+            params.append([float(kref.mcmc_t_hi(q.j)), 0.05, float(q.n), float(reads)])
+        return (jp, hp, torch.stack(s0), torch.stack(seeds),
+                torch.tensor(params, dtype=torch.float32))
+
+    def normal_instance(seed: int, n: int) -> IsingProblem:
+        g = np.random.default_rng(seed)
+        j = g.standard_normal((n, n)).astype(np.float32)
+        j = np.triu(j + j.T, 1) / np.float32(2)
+        return IsingProblem(h=torch.tensor(g.standard_normal(n).astype(np.float32), device=dev),
+                            j=torch.tensor(j + j.T, device=dev))
+
+    mcmc_keys = list(prng.split(prng.key(3), 3))
+    integer = [quantize_ising(improved_ising(problem), key=kq).ising
+               for kq, _ in pipeline._iteration_keys(key, 3)]
+    kinds = {"float-normal": [normal_instance(40 + i, 20) for i in range(3)],
+             "chip-integer": integer}
+    cases = [(kind, mode, chunk, rb) for kind in kinds for mode in ("sweep", "random")
+             for chunk, rb in ((32, 8), (64, 16), (128, 8))]
+    cases.append(("wide", "sweep", 128, 8))
+    kinds["wide"] = [normal_instance(7, 200)]
+    mcmc_reads = 3
+    for kind, mode, chunk, rb in cases:
+        insts_k = kinds[kind]
+        replicas = 8 if kind == "wide" else 16
+        mop = mcmc_operands(insts_k, mcmc_keys, replicas, mcmc_reads)
+        kw = dict(sweeps=3 if kind == "wide" else 10, chunk=chunk, mode=mode, replica_block=rb)
+        e_k, s_k = md.mcmc_sweep_batched(*mop, **kw)
+        e_p, s_p = md.mcmc_sweep_batched_plain(*mop, **kw)
+        be_k, bs_k = md.mcmc_fused_best_batched(*mop, **kw)
+        be_p, bs_p = md.mcmc_fused_best_batched_plain(*mop, **kw)
+        label = f"{kind} mode={mode} chunk={chunk} replica_block={rb} B={len(insts_k)} R={replicas}"
+        if not (torch.equal(e_k, e_p) and torch.equal(s_k, s_p)):
+            fail(f"mcmc_sweep_batched vs plain ({label}): spins equal {torch.equal(s_k, s_p)}, "
+                 f"max energy err {float((e_k - e_p).abs().max())}")
+        if not (torch.equal(be_k, be_p) and torch.equal(bs_k, bs_p)):
+            fail(f"mcmc_fused_best_batched vs plain ({label}): {be_k.tolist()} vs {be_p.tolist()}")
+        rows_b = torch.arange(len(insts_k), device=dev)
+        first = torch.argmin(e_k[:, :mcmc_reads], dim=1)
+        if not (torch.equal(be_k, e_k[rows_b, first]) and torch.equal(bs_k, s_k[rows_b, first])):
+            fail(f"mcmc fused best != sweep kernel + first argmin over {mcmc_reads} reads ({label})")
+        for name, got_e, want_e in (("mcmc_sweep_batched", e_k, e_p),
+                                    ("mcmc_fused_best_batched", be_k, be_p)):
+            errs[name] = max(errs.get(name, 0.0), float((got_e - want_e).abs().max()))
+    torch.cuda.synchronize()
+    print(f"mcmc kernels vs plain: ok, bitwise in {len(cases)} cases "
+          f"(float-normal and chip-integer x sweep/random x chunk/replica_block "
+          f"(32, 8) (64, 16) (128, 8), B=3 R=16 reads={mcmc_reads}; 200 spins on 256 lanes)")
+
     # ------------------------------------------------------------ 4. main path
     cfg = SolveConfig(solver="cobi", iterations=ITERATIONS, reads=READS, steps=STEPS)
     bounds = metrics.reference_bounds(problem)
@@ -483,7 +575,7 @@ def main() -> None:
         return (np.array_equal(a.selection, b.selection) and a.objective == b.objective
                 and np.array_equal(a.curve, b.curve))
 
-    def drive_lockstep(farm, barrier):
+    def drive_lockstep(farm, barrier, cfg=farm_cfg):
         """16 generators in lockstep: every generator submits its round,
         ``barrier()`` (a drain, or a flush hint to the background loop),
         then every generator reduces.  Returns the reports and the host
@@ -491,7 +583,7 @@ def main() -> None:
         barrier, and reduce (waiting on futures, repair, best-of)."""
         split = dict(submit=0.0, barrier=0.0, reduce=0.0)
         t = time.perf_counter()
-        gens = [pipeline.iter_solve_es(doc, k, farm_cfg, backend=farm)
+        gens = [pipeline.iter_solve_es(doc, k, cfg, backend=farm)
                 for doc, k in zip(farm_docs, farm_keys)]
         reports, active = [None] * len(gens), set(range(len(gens)))
         for g in gens:
@@ -617,6 +709,76 @@ def main() -> None:
     for name in counted:
         launches[name] += c[name]
 
+    # ------------------------------------------------------------ 4c. the MCMC family
+    def bank_line(label, reports, wall, c) -> None:
+        tot = {f: sum(getattr(r, f) for r in reports)
+               for f in ("chip_seconds", "chip_energy_joules", "bytes_h2d", "bytes_d2h")}
+        print(f"{label}: wall {wall:.3f} s receipts chip_seconds {tot['chip_seconds']:.6f} "
+              f"energy_joules {tot['chip_energy_joules']:.9f} bytes h2d {tot['bytes_h2d']} "
+              f"d2h {tot['bytes_d2h']} launches {({k: v for k, v in c.items() if v})}")
+
+    def mcmc_pair(label, run_inline, run_bank, speculates=False) -> tuple:
+        """Run a path inline and through a fresh McmcPoolBackend(4), each
+        with the counts set to 0 just before; hold them equal bitwise, the
+        inline launches to one sweep per solver invocation and the bank's to
+        one fused best per job it ran (all of them, unless the pipelined
+        windows cancelled queued speculative jobs)."""
+        reset_counts()
+        t0 = time.perf_counter()
+        inline_reps = run_inline()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c_inline = counts()
+        bank_line(f"{label} inline", inline_reps, wall, c_inline)
+        bank = McmcPoolBackend(workers=4)
+        reset_counts()
+        t0 = time.perf_counter()
+        bank_reps = run_bank(bank)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c_bank = counts()
+        bank.close()
+        bank_line(f"{label} McmcPoolBackend(4)", bank_reps, wall, c_bank)
+        for i, (a, b) in enumerate(zip(inline_reps, bank_reps)):
+            if not same(a, b):
+                fail(f"{label} {i}: bank {b.objective} != inline {a.objective}")
+        n_inline = sum(r.solver_invocations for r in inline_reps)
+        n_bank = sum(r.solver_invocations for r in bank_reps)
+        ran = int(bank.obs.registry.get("pool_jobs_total").labels(solver="mcmc").value)
+        if c_inline != expect(mcmc_sweep_batched=n_inline):
+            fail(f"{label} inline launches {c_inline} != {n_inline} sweeps")
+        if c_bank != expect(mcmc_fused_best_batched=ran) or not (
+                ran <= n_bank if speculates else ran == n_bank):
+            fail(f"{label} bank launches {c_bank}: {ran} jobs ran of {n_bank} submitted")
+        for name in counted:
+            launches[name] += c_inline[name] + c_bank[name]
+        return inline_reps, bank_reps
+
+    mcfg = SolveConfig(solver="mcmc")
+    (mrep,), _ = mcmc_pair(
+        "mcmc direct", lambda: [solve_es(problem, key, mcfg)],
+        lambda bank: [solve_es(problem, key, mcfg, backend=bank)])
+    mscore = float(metrics.normalized_objective(mrep.objective, bounds))
+    msel = mrep.selection.nonzero()[0].tolist()
+    print(f"mcmc direct: N={problem.n} M={problem.m} selected {msel} objective "
+          f"{mrep.objective:.6f} norm_obj {mscore:.6f} (cobi {score:.6f}); "
+          f"{mcfg.iterations} iterations x {mcfg.reads} reads x {MCMC_SWEEPS} sweeps")
+    if msel != MCMC_DIRECT_SELECTION:
+        fail(f"mcmc direct selects {msel} != the reference's {MCMC_DIRECT_SELECTION}")
+    mdcfg = SolveConfig(solver="mcmc", decompose=True, p=20, q=10)
+    (mdrep,), _ = mcmc_pair(
+        f"mcmc decomposed N={big.n}", lambda: [solve_es(big, prng.key(1), mdcfg)],
+        lambda bank: [solve_es(big, prng.key(1), mdcfg, backend=bank)], speculates=True)
+    print(f"mcmc decomposed: selected {mdrep.selection.nonzero()[0].tolist()} objective "
+          f"{mdrep.objective:.6f} solves x iterations {mdrep.solver_invocations}")
+    if mdrep.selection.sum() != big.m or not math.isfinite(mdrep.objective):
+        fail(f"mcmc decomposed selects {mdrep.selection.sum()} != {big.m}")
+    mfarm_cfg = dataclasses.replace(farm_cfg, solver="mcmc")
+    mcmc_pair(f"mcmc farm mix: {n_docs} documents",
+              lambda: [solve_es(doc, k, mfarm_cfg) for doc, k in zip(farm_docs, farm_keys)],
+              lambda bank: drive_lockstep(bank, bank.drain, mfarm_cfg)[0])
+    print(f"mcmc paths: direct, decomposed and {n_docs} documents equal their inline solves bitwise")
+
     # ------------------------------------------------------------ 5. timing
     op, mask, rd = operands(READS, k_solve)
     full = dict(steps=STEPS, dt=0.35, ks_max=1.2)
@@ -706,6 +868,37 @@ def main() -> None:
         print(f"time {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {b_ms:.6f} ms ({by}) at {len(shapes)} x (R={READS}, N=128, S={shapes[0][2]}), "
               f"{u_ms:.6f} ms ({u_by}) at the {n_jobs} jobs' own n; steps={STEPS}")
+
+    # The MCMC kernels at the main path's shape: the direct document's first
+    # rounded instance (20 spins on 128 lanes), 8 replicas, 50 sweeps, sweep
+    # mode.  bound_ms counts 128 proposals a sweep on 128 lanes, as the
+    # reference's kernel makes them; bound_unpadded_ms the 20 live ones on
+    # the instance's own 20 spins.
+    mop = mcmc_operands([inst], [k_solve], READS, READS)
+    mkw = dict(sweeps=MCMC_SWEEPS, mode="sweep", replica_block=READS)
+    mcmc_jobs = {
+        "mcmc_sweep_batched": (md.mcmc_sweep_batched, md.mcmc_sweep_batched_plain,
+                               "src/repro/kernels/mcmc_dynamics.py:173"),
+        "mcmc_fused_best_batched": (md.mcmc_fused_best_batched,
+                                    md.mcmc_fused_best_batched_plain,
+                                    "src/repro/kernels/mcmc_dynamics.py:222"),
+    }
+    for name, (kern, plain, replaces) in mcmc_jobs.items():
+        ms = cuda_ms(lambda: kern(*mop, **mkw), reps=50)
+        plain_ms = cuda_ms(lambda: plain(*mop, **mkw), reps=2, warmup=1)
+        b_ms, by = bound_ms(*mcmc_work(name, READS, 128, 128, MCMC_SWEEPS))
+        u_ms, u_by = bound_ms(*mcmc_work(name, READS, inst.n, inst.n, MCMC_SWEEPS))
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/mcmc_dynamics.cu",
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+            "bound_unpadded_ms": u_ms, "bound_unpadded_by": u_by,
+        })
+        print(f"time {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {b_ms:.6f} ms ({by}) at B=1 R={READS} N=128 128 proposals a sweep, "
+              f"{u_ms:.6f} ms ({u_by}) at N={inst.n}; sweeps={MCMC_SWEEPS}")
     if any(row["launches"] == 0 for row in rows):
         fail(f"a kernel of the path never launched: {[r['name'] for r in rows if not r['launches']]}")
 
@@ -721,6 +914,10 @@ def main() -> None:
         ms = cuda_ms(fn, reps=10)
         b_ms, by = bound_ms(*work(name, op_big.r_pad, op_big.n_pad, mask_big.shape[1]))
         print(f"time {name} at reads=1024: kernel {ms:.4f} ms, bound {b_ms:.6f} ms ({by})")
+    mop_big = mcmc_operands([inst], [k_solve], 1024, 1024)
+    ms = cuda_ms(lambda: md.mcmc_sweep_batched(*mop_big, **{**mkw, "replica_block": 256}), reps=10)
+    b_ms, by = bound_ms(*mcmc_work("mcmc_sweep_batched", 1024, 128, 128, MCMC_SWEEPS))
+    print(f"time mcmc_sweep_batched at reads=1024: kernel {ms:.4f} ms, bound {b_ms:.6f} ms ({by})")
 
     # ------------------------------------------------------------ 6. result
     print(json.dumps({"kernels": rows}))

@@ -103,11 +103,23 @@ def _f32(x) -> torch.Tensor:
 
 def es_objective(problem: EsProblem, x: torch.Tensor) -> torch.Tensor:
     """Eq. (3) objective (maximized), batched over leading dims of ``x``.
-    The cardinality constraint is NOT included."""
+    The cardinality constraint is NOT included.
+
+    Every sum runs over the lanes in order -- ``x . mu``, ``(beta x)_i`` and
+    ``x . (beta x)`` -- which is how XLA's CPU backend takes the reference's
+    dots for one selection, so a selection's objective is the reference's
+    bit for bit (a library matmul sums in another order).
+    """
     x = _f32(x).to(problem.device)
     mu, beta = _f32(problem.mu), _f32(problem.beta)
-    lin = x @ mu
-    quad = torch.einsum("...i,ij,...j->...", x, beta, x)
+    lin = torch.zeros(x.shape[:-1], dtype=torch.float32, device=x.device)
+    bx = torch.zeros_like(x)  # (beta x)_i
+    for j in range(x.shape[-1]):
+        lin = lin + x[..., j] * mu[j]
+        bx = bx + beta[:, j] * x[..., j, None]
+    quad = torch.zeros_like(lin)
+    for i in range(x.shape[-1]):
+        quad = quad + x[..., i] * bx[..., i]
     return lin - problem.lam * quad
 
 

@@ -1,6 +1,7 @@
 """Hardware cost models (paper Sec. V): the per-solve time and power that
-TTS/ETS use, the COBI chip's (which bills the chip farm's receipts), and the
-brute-force CPU baseline's model.
+TTS/ETS use, the COBI chip's (which bills the chip farm's receipts), the
+CMOS MCMC annealer's (which bills the MCMC bank's), and the brute-force CPU
+baseline's model.
 
 COBI constants are the paper's: ~200 us per anneal at 25 mW, and 18.9 us of
 host objective evaluation per stochastic-rounding iteration at 20 W.
@@ -24,6 +25,17 @@ COBI = SolverHardware(
     name="cobi",
     seconds_per_solve=200e-6,
     solver_power_w=25e-3,
+    host_eval_seconds=18.9e-6,
+    host_power_w=20.0,
+)
+
+# Snowball-class CMOS MCMC annealer: asynchronous Metropolis updates in
+# SRAM-adjacent logic.  Faster and lower-power per anneal than the oscillator
+# chip; it bills the MCMC annealer bank's receipts (farm/mcmc_backend.py).
+MCMC_CMOS = SolverHardware(
+    name="mcmc",
+    seconds_per_solve=50e-6,
+    solver_power_w=15e-3,
     host_eval_seconds=18.9e-6,
     host_power_w=20.0,
 )

@@ -44,7 +44,7 @@ from repro_torch.solvers import brute as brute_solver
 class SolveConfig:
     """Knobs of the hardware-aware ES pipeline."""
 
-    solver: str = "cobi"  # cobi | brute | exact
+    solver: str = "cobi"  # cobi | mcmc | brute | exact
     formulation: str = "improved"  # improved | original
     rounding: str = "stochastic"  # deterministic | stochastic_5050 | stochastic
     int_range: Optional[int] = COBI_RANGE  # None -> no quantization (FP solve)

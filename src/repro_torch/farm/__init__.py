@@ -35,8 +35,9 @@ of the card idle.  This package turns the solver into a *farm*:
     drained readout is validated host-side; per-chip circuit breakers
     quarantine sick chips.
 
-The reference's MCMC annealer bank (``McmcPoolBackend``) ports with the MCMC
-family.
+  * :mod:`repro_torch.farm.mcmc_backend` -- :class:`McmcPoolBackend`, the
+    MCMC annealer bank: the second routed hardware family, a pool of worker
+    threads that launch the MCMC kernels and bill the CMOS annealer's model.
 """
 
 from repro_torch.farm.faults import (  # noqa: F401
@@ -53,6 +54,7 @@ from repro_torch.farm.health import (  # noqa: F401
     ChipBreaker,
     FarmHealth,
 )
+from repro_torch.farm.mcmc_backend import McmcPoolBackend  # noqa: F401
 from repro_torch.farm.packing import (  # noqa: F401
     PackedInstance,
     PackEstimate,

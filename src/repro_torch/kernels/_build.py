@@ -8,10 +8,11 @@ one ``nvcc`` per source at once; a failed build raises with the compiler's
 output.  Nothing here runs at import time: this module is imported on
 machines with no CUDA toolkit.
 
-Thread-safe: the chip farm launches from its background drive thread while
-the caller may launch from its own, so one module lock serializes building
-and loading, and each build writes a temporary file named by process and
-thread before it moves into place.
+Thread-safe: the chip farm launches from its background drive thread and the
+MCMC pool from its workers while the caller may launch from its own, so one
+module lock serializes building and loading, each build writes a temporary
+file named by process and thread before it moves into place, and
+:func:`count_launch` keeps the wrappers' launch counts exact.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("ising_energy", "cobi_dynamics")
+SOURCES = ("ising_energy", "cobi_dynamics", "mcmc_dynamics")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -42,10 +43,15 @@ _ARGTYPES = {
         "cobi_readout": [P, P, P, P, P, P, P, I, I, I, I, F, F, P],
         "cobi_fused_best": [P] * 11 + [I, I, I, I, I, F, F, P],
     },
+    "mcmc_dynamics": {
+        "mcmc_sweep": [P] * 8 + [I] * 7 + [P],
+        "mcmc_fused_best": [P] * 10 + [I] * 7 + [P],
+    },
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.RLock()  # guards _LIBS and the builds; library() nests build_all()
+_COUNT_LOCK = threading.Lock()  # guards every wrapper's .launches
 
 
 def _nvcc() -> str:
@@ -112,6 +118,13 @@ def library(name: str) -> ctypes.CDLL:
                 getattr(lib, fn).restype = ctypes.c_int
             _LIBS[name] = lib
         return lib
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``.  Under a lock: the MCMC pool's worker
+    threads launch at once, and a bare ``+= 1`` can lose a count."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 def check(err: int, what: str) -> None:

@@ -92,7 +92,7 @@ def cobi_trajectory_cuda(
         return cobi_trajectory_plain(j_scaled, h_scaled, phi0, steps=steps, dt=dt, ks_max=ks_max)
     out = _trajectory(j_scaled[None], h_scaled[None], phi0[None],
                       steps=steps, dt=dt, ks_max=ks_max)
-    cobi_trajectory_cuda.launches += 1
+    _build.count_launch(cobi_trajectory_cuda)
     return out[0]
 
 
@@ -122,7 +122,7 @@ def cobi_trajectory_batched_cuda(
         return cobi_trajectory_batched_plain(
             j_scaled, h_scaled, phi0, steps=steps, dt=dt, ks_max=ks_max)
     out = _trajectory(j_scaled, h_scaled, phi0, steps=steps, dt=dt, ks_max=ks_max)
-    cobi_trajectory_batched_cuda.launches += 1
+    _build.count_launch(cobi_trajectory_batched_cuda)
     return out
 
 
@@ -167,7 +167,7 @@ def cobi_readout_cuda(
         1, r, n, steps, dt, ks_max, _build.stream_of(phi0),
     )
     _build.check(err, "cobi_readout")
-    cobi_readout_cuda.launches += 1
+    _build.count_launch(cobi_readout_cuda)
     return spins, energies
 
 
@@ -234,7 +234,7 @@ def cobi_fused_best_cuda(
         j_scaled[None], h_scaled[None], j_orig[None], h_orig[None], mask[None],
         reads[None], phi0[None], steps=steps, dt=dt, ks_max=ks_max,
     )
-    cobi_fused_best_cuda.launches += 1
+    _build.count_launch(cobi_fused_best_cuda)
     return e_out[0], s_out[0]
 
 
@@ -272,7 +272,7 @@ def cobi_fused_best_batched_cuda(
         )
     out = _fused_best(j_scaled, h_scaled, j_orig, h_orig, mask, reads, phi0,
                       steps=steps, dt=dt, ks_max=ks_max)
-    cobi_fused_best_batched_cuda.launches += 1
+    _build.count_launch(cobi_fused_best_batched_cuda)
     return out
 
 

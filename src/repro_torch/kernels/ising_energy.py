@@ -47,7 +47,7 @@ def ising_energy_cuda(
     if spins.device.type == "cpu":
         return ising_energy_plain(spins, h, j)
     out = _energy(spins[None], h[None], j[None])[0]
-    ising_energy_cuda.launches += 1
+    _build.count_launch(ising_energy_cuda)
     return out
 
 
@@ -70,7 +70,7 @@ def ising_energy_batched_cuda(
     if spins.device.type == "cpu":
         return ising_energy_batched_plain(spins, h, j)
     out = _energy(spins, h, j)
-    ising_energy_batched_cuda.launches += 1
+    _build.count_launch(ising_energy_batched_cuda)
     return out
 
 

@@ -10,7 +10,9 @@ The padding rules are the reference's exactly, at its default replica blocks
 (256 for the anneal, 512 for the energy): ``r_block = min(block, pad8(R))``
 and ``r_pad = pad(R, r_block)``.  The phases are drawn at
 ``(r_pad, n_pad)`` with the reference's threefry stream, so the same key
-starts every anneal from the same phases bit for bit.
+starts every anneal from the same phases bit for bit.  The MCMC anneal
+(:func:`mcmc_anneal`) pads the same way and draws its initial spins from
+the reference's counters at ``(r_pad, n_pad)``.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import dataclasses
 import math
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from repro_torch import prng
@@ -34,6 +37,11 @@ from repro_torch.kernels.ising_energy import (
     LANE,
     ising_energy_batched_cuda,
     ising_energy_cuda,
+)
+from repro_torch.kernels.mcmc_dynamics import (
+    DEFAULT_CHUNK,
+    mcmc_fused_best_batched,
+    mcmc_sweep_batched,
 )
 
 SLOT_PAD = 8  # slot axis of the fused readout is padded to this multiple
@@ -325,3 +333,58 @@ def cobi_anneal_packed_best(
         steps=steps, dt=dt, ks_max=ks_max,
     )
     return e_out[:, :s_slots], s_out[:, :s_slots, :n].to(torch.int8)
+
+
+# ---------------------------------------------------------------------------
+# MCMC: asynchronous Metropolis sweeps (the second solver family).
+# ---------------------------------------------------------------------------
+
+
+def mcmc_anneal(
+    h: torch.Tensor,
+    j: torch.Tensor,
+    key: torch.Tensor,
+    *,
+    replicas: int = 8,
+    sweeps: int = 50,
+    chunk: int = DEFAULT_CHUNK,
+    mode: str = "sweep",
+    t_hi=None,
+    t_lo: float = 0.05,
+    replica_block: int = ANNEAL_REPLICA_BLOCK,
+    reduce: str = "none",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Asynchronous Metropolis sweeps over ``replicas`` chains on h's device.
+
+    Geometric per-sweep temperature ladder from ``t_hi`` (default
+    ``ref.mcmc_t_hi`` of the unpadded J) down to ``t_lo``, proposals in
+    order (``mode="sweep"``) or uniform (``"random"``), counter-based
+    randomness from ``key``.  There is no dynamics pre-scale: the given
+    couplings drive the proposals and score the energies.
+
+    ``reduce="none"`` returns each replica's best-visited state (spins
+    (R, N) int8, energies (R,) f32); ``"best"`` fuses the first-argmin
+    replica reduction into the launch (spins (N,) int8, energy () f32),
+    equal to ``"none"`` + first argmin.
+    """
+    if reduce not in ("none", "best"):
+        raise ValueError(f"unknown reduce mode {reduce!r}")
+    n = h.shape[-1]
+    if t_hi is None:
+        t_hi = kref.mcmc_t_hi(j)  # unpadded: padding would reorder the row sums
+    t_hi = float(np.float32(float(t_hi)))
+
+    n_pad = _pad_to(max(n, LANE), LANE)
+    r_block = min(replica_block, _pad_to(replicas, 8))
+    r_pad = _pad_to(replicas, r_block)
+    seeds = kref.mcmc_seeds(key)
+    s0 = kref.mcmc_init_spins(seeds[0], r_pad, n_pad, device=h.device)
+    params = torch.tensor([[t_hi, t_lo, float(n), float(replicas)]], dtype=torch.float32)
+    operands = (_padded(j, (n_pad, n_pad))[None], _padded(h[None], (1, n_pad))[None],
+                s0[None], seeds[None], params)
+    kw = dict(sweeps=sweeps, chunk=chunk, mode=mode, replica_block=r_block)
+    if reduce == "best":
+        e, s = mcmc_fused_best_batched(*operands, **kw)
+        return s[0, :n].to(torch.int8), e[0]
+    e, s = mcmc_sweep_batched(*operands, **kw)
+    return s[0, :replicas, :n].to(torch.int8), e[0, :replicas]

@@ -14,7 +14,8 @@ A key is a ``(2,)`` int64 tensor on the CPU holding the two uint32 words of
 call; there is no global generator state.
 
 The hash runs on int64 tensors masked to 32 bits (CPU ``uint32`` tensors have
-no ``+`` or ``>>`` in torch), so the same code runs on CPU and CUDA tensors.
+no ``+`` or ``>>`` in torch), so the same code runs on CPU and CUDA tensors,
+and on int64 numpy arrays (:func:`bits_host`).
 ``bits``, ``uniform`` and ``uniform_many`` draw on the card unless the caller
 passes ``device="cpu"``.
 """
@@ -24,6 +25,7 @@ from __future__ import annotations
 import math
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
@@ -75,6 +77,14 @@ def _hash_iota(k: torch.Tensor, shape: Sequence[int], device) -> tuple:
     lo = _iota(shape, device)
     k1, k2 = _words(k)
     return threefry2x32(k1, k2, torch.zeros_like(lo), lo)
+
+
+def bits_host(k: torch.Tensor, size: int) -> np.ndarray:
+    """``jax.random.bits(key, (size,))`` as int64 numpy on the host: the
+    same hash on numpy arrays, for draws too small to be worth torch ops."""
+    k1, k2 = _words(k)
+    b1, b2 = threefry2x32(k1, k2, np.zeros(size, np.int64), np.arange(size, dtype=np.int64))
+    return b1 ^ b2
 
 
 def split(k: torch.Tensor, num: int = 2) -> torch.Tensor:

@@ -1,1 +1,10 @@
-from repro_torch.solvers.base import ISING_SOLVER_NAMES, SolverResult, ising_solver  # noqa: F401
+from repro_torch.solvers.base import (  # noqa: F401
+    ISING_SOLVER_NAMES,
+    AwaitableFuture,
+    PoolFuture,
+    PoolJobCancelled,
+    PoolReceipt,
+    SolverResult,
+    ThreadPoolBackend,
+    ising_solver,
+)

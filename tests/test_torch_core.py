@@ -86,6 +86,21 @@ def test_qubo_and_gamma_match():
     )
 
 
+@pytest.mark.parametrize("n", [20, 59, 70, 100])
+def test_es_objective_of_a_selection_is_bitwise(n):
+    """A decomposed solve reports es_objective of its final selection: the
+    port sums in the reference's order, so the objective is its bit for bit."""
+    jp = jsyn.synthetic_benchmark(n, n, 6, lam=0.5)
+    tp = carry_across("es", np.asarray(jp.mu), np.asarray(jp.beta), m=6, lam=0.5,
+                      device="cpu")
+    rng = np.random.default_rng(n)
+    for _ in range(5):
+        x = np.zeros(n, np.float32)
+        x[rng.choice(n, 6, replace=False)] = 1.0
+        assert float(tform.es_objective(tp, torch.from_numpy(x))) == float(
+            jform.es_objective(jp, jnp.asarray(x)))
+
+
 def test_kofn_bias_matches():
     jp, tp = _problems(16)
     ji, ti = jform.original_ising(jp), tform.original_ising(tp)
@@ -277,7 +292,7 @@ def test_brute_registry_solver_matches():
     from repro.solvers import brute as jbrute
     from repro_torch.solvers import ISING_SOLVER_NAMES, ising_solver
 
-    assert ISING_SOLVER_NAMES == ("brute", "cobi")
+    assert ISING_SOLVER_NAMES == ("brute", "cobi", "mcmc")
     jp, tp = _problems(12)
     ji, ti = jform.improved_ising(jp), tform.improved_ising(tp)
     want = jbrute.solve_ising(ji)

@@ -116,14 +116,15 @@ def test_solve_es_without_device_raises_without_gpu():
 
 
 @pytest.mark.parametrize("entry", ["bits", "uniform", "problem_from_sentences", "carry_across",
-                                   "uniform_many", "CobiFarm", "solve_many", "solve_batch"])
+                                   "uniform_many", "CobiFarm", "solve_many", "solve_batch",
+                                   "McmcPoolBackend", "solve_es_mcmc"])
 def test_entry_points_default_to_the_card(entry):
     """Without ``device=`` every entry point that makes tensors asks for the
     card, and raises here, where there is none."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid here")
     from repro_torch import prng
-    from repro_torch.farm import CobiFarm, solve_many
+    from repro_torch.farm import CobiFarm, McmcPoolBackend, solve_many
     from repro_torch.solvers.cobi import solve_batch
 
     _, tp = _system_instance()
@@ -138,12 +139,19 @@ def test_entry_points_default_to_the_card(entry):
         "CobiFarm": lambda: CobiFarm(2),
         "solve_many": lambda: solve_many([ising], [prng.key(0)], check=False),
         "solve_batch": lambda: solve_batch([ising], [prng.key(0)], check=False),
+        "McmcPoolBackend": lambda: McmcPoolBackend(),
+        "solve_es_mcmc": lambda: solve_es(tp, prng.key(0), SolveConfig(solver="mcmc")),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
+    if entry == "McmcPoolBackend":
+        McmcPoolBackend(device="cpu").close()
+    if entry == "solve_es_mcmc":
+        cfg = SolveConfig(solver="mcmc", iterations=1, reads=8, steps=16)
+        assert solve_es(tp, prng.key(0), cfg, device="cpu").selection.sum() == tp.m
 
 
-@pytest.mark.parametrize("solver", ["tabu", "sa", "mcmc", "random"])
+@pytest.mark.parametrize("solver", ["tabu", "sa", "random"])
 def test_unported_solvers_name_their_roadmap_item(solver):
     _, tp = _system_instance()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
