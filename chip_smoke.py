@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--save-embeddings PATH]
 
 Phases, each of which must pass or the script exits non-zero:
 
   1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
-     TF32 off for matmuls and cuDNN;
+     TF32 off for matmuls and cuDNN, and bf16 GEMMs summed in float32
+     (no reduced-precision reductions);
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
      per source, started together) and print the build seconds;
   3. hold every kernel against its plain PyTorch version on the card, at the
@@ -43,10 +44,34 @@ Phases, each of which must pass or the script exits non-zero:
      document decomposed, inline and through the bank; the farm mix's 16
      documents inline and through the bank; each pair bitwise equal, with
      launch counts, wall times and receipt totals;
+  3d. the flash-attention kernel against its plain version (f32 within
+     2e-5, bf16 within 1.6e-2) and against the naive oracle (2e-3 / 3e-2):
+     causal and full, window 64, GQA 2:1, MQA, Sq < Skv, D 16 to 128, S 64
+     to 2048, and the encoder stage's (8, 2048) and (4, 1024) buckets;
+  4d. the encoder backbone: sbert-paper at full width (bf16, 12 layers,
+     random weights from init_params(seed 0)) in an ``EncoderStage`` with
+     ``attn_impl="flash"``, the direct document and the farm mix's nine
+     documents that fit 2048 byte tokens submitted at once (two buckets);
+     12 flash launches per stage launch, none for "sdpa" and "auto"; flash
+     against sdpa and auto (cosine >= 0.999); the direct document bit for
+     bit against itself alone in a padded batch of the same shape; each
+     path's embeddings through ``solve_es`` (``SolveConfig()``), the flash
+     path's summaries within 0.05 of the plain versions' on the CPU and the
+     direct document's above 0.8 normalized; ``BackboneEncoder`` on the
+     direct document against the stage's row; the query cache's hit;
+     ``--save-embeddings PATH`` writes the flash path's embeddings of the
+     direct document and farm1 to an .npz (the CPU tests' card fixture);
+  4e. where the encode time goes: each bucket's pass warm on the main
+     thread, held against the stage's first drain (prewarmed on its drive
+     thread: within 1.5x), and the 2048 bucket's pass under torch.profiler,
+     its device time split into flash, GEMMs and the rest, and the device's
+     idle share;
   5. time every kernel, its plain version and its bound (at the padded
      shapes the kernels take, and at the instances' own n spins and reads);
      the batched kernels at the 16-document drain's shape; the MCMC kernels
-     at the main path's shape (B = 1, R = 8, 128 lanes, 50 sweeps);
+     at the main path's shape (B = 1, R = 8, 128 lanes, 50 sweeps); the
+     flash kernel at the stage's buckets, beside one SDPA call as its
+     yardstick;
   6. print the ``kernels`` JSON line, the card line, and last the result line.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.  Without
@@ -55,12 +80,14 @@ a CUDA device, or without the repository around it, it fails.
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import math
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -68,8 +95,9 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): float32 outside the
-# tensor cores, and HBM3 bandwidth.
+# tensor cores, bf16 on the tensor cores, and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989.4e12
 PEAK_BYTES_PER_S = 3.35e12
 
 STEPS, READS, ITERATIONS = 400, 8, 10
@@ -78,6 +106,7 @@ TRAJ_TOL = 2e-4  # rtol = atol at 50 steps: the reference's kernel-vs-oracle bou
 # synthetic_document(100 + i, n), m = 5, lambda = 0.5, 6 iterations.
 FARM_SIZES = [10, 14, 18, 22, 26, 30, 34, 38, 12, 16, 20, 24, 28, 32, 36, 40]
 FARM_ITERATIONS = 6
+ENCODER_MAX_SIZE = 26  # the farm mix's documents that fit 2048 byte tokens
 MCMC_SWEEPS = 50  # SolveConfig's 400 steps at 8 steps a sweep
 # SolveConfig(solver="mcmc") on synthetic_document(7, 20), m = 6, key 0:
 # the JAX package's selection on the CPU.
@@ -113,8 +142,8 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+def bound_ms(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS) -> tuple[float, str]:
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -188,6 +217,11 @@ def packed_operands(instances, keys, reads, dev):
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--save-embeddings", metavar="PATH",
+                    help="write the card's flash-path embeddings of the direct document and "
+                         "farm1 (float32) to this .npz")
+    args = ap.parse_args()
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         fail("src/repro_torch is not beside chip_smoke.py: run it from the repository")
     import torch
@@ -201,10 +235,15 @@ def main() -> None:
     from repro_torch.core.formulation import IsingProblem
     from repro_torch.core.rounding import quantize_ising
     from repro_torch.data.synthetic import synthetic_document
-    from repro_torch.embeddings import problem_from_sentences
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.tokenizer import ByteTokenizer
+    from repro_torch.embeddings import BackboneEncoder, EncoderStage, problem_from_sentences
+    from repro_torch.embeddings import serving as enc_serving
+    from repro_torch.models import init_params
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import cobi_dynamics as cd
     from repro_torch.kernels import ising_energy as ie
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mcmc_dynamics as md
     from repro_torch.kernels import ref as kref
     from repro_torch.farm import CobiFarm, McmcPoolBackend
@@ -215,12 +254,16 @@ def main() -> None:
     # ------------------------------------------------------------ 1. the card
     card = card_line()
     print(f"card: {card}")
+    # Full float32 products, and bf16 products summed in float32 (no
+    # reduced-precision split-K reductions) in cuBLAS.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()} "
           f"tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
-          f"cudnn={torch.backends.cudnn.allow_tf32}")
+          f"cudnn={torch.backends.cudnn.allow_tf32} bf16 reduced-precision reduction="
+          f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
     dev = torch.device("cuda")
 
     # ------------------------------------------------------------ 2. build
@@ -244,6 +287,7 @@ def main() -> None:
         "ising_energy_batched": ie.ising_energy_batched_cuda,
         "mcmc_sweep_batched": md.mcmc_sweep_batched,
         "mcmc_fused_best_batched": md.mcmc_fused_best_batched,
+        "flash_attention": fa.flash_attention_cuda,
     }
 
     def reset_counts() -> None:
@@ -501,6 +545,51 @@ def main() -> None:
     print(f"mcmc kernels vs plain: ok, bitwise in {len(cases)} cases "
           f"(float-normal and chip-integer x sweep/random x chunk/replica_block "
           f"(32, 8) (64, 16) (128, 8), B=3 R=16 reads={mcmc_reads}; 200 spins on 256 lanes)")
+
+    # ------------------------------------------------------------ 3d. flash attention
+    # The flash kernel against its plain version (same blocked algorithm;
+    # only the float32 summation order differs, and in bf16 where p is
+    # rounded against a running max) and against the naive oracle at the
+    # reference's bounds, before any path uses it.
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+
+    def attn_inputs(b, sq, skv, h, kv, d, dtype):
+        return [torch.randn(shape, generator=gen, device=dev).to(dtype)
+                for shape in ((b, sq, h, d), (b, skv, kv, d), (b, skv, kv, d))]
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    fa_cases = [(2, 256, 256, 4, 2, d, dt, causal, None)  # GQA 2:1, each head dim
+                for dt in (f32, bf16) for d in (16, 32, 64, 128) for causal in (True, False)]
+    for dt in (f32, bf16):
+        fa_cases += [(1, 256, 256, 2, 2, 64, dt, True, 64),  # sliding window
+                     (1, 256, 256, 8, 1, 32, dt, True, None),  # MQA
+                     (1, 64, 256, 2, 2, 64, dt, True, None),  # Sq < Skv
+                     (2, 64, 64, 2, 2, 64, dt, True, None),
+                     (1, 2048, 2048, 2, 2, 64, dt, True, None)]
+    fa_cases += [(8, 2048, 2048, 12, 12, 64, bf16, True, None),  # the stage's buckets
+                 (4, 1024, 1024, 12, 12, 64, bf16, True, None)]
+    errs["flash_attention"] = 0.0
+    for b, sq, skv, h, kv, d, dt, causal, window in fa_cases:
+        q, k, v = attn_inputs(b, sq, skv, h, kv, d, dt)
+        got = fa.flash_attention_cuda(q, k, v, causal=causal, window=window).float()
+        want = fa.flash_attention_plain(q, k, v, causal=causal, window=window).float()
+        ref = kref.ref_attention(q, k, v, causal=causal, window=window).float()
+        tol, ref_tol = (2e-5, 2e-3) if dt == f32 else (1.6e-2, 3e-2)
+        label = (f"B={b} Sq={sq} Skv={skv} H={h} KV={kv} D={d} {str(dt)[6:]} causal={causal} "
+                 f"window={window}")
+        err = (got - want).abs()
+        if not bool((err <= tol + tol * want.abs()).all()):
+            fail(f"flash_attention vs plain ({label}): max err {float(err.max())}")
+        ref_err = (got - ref).abs()
+        if not bool((ref_err <= ref_tol + ref_tol * ref.abs()).all()):
+            fail(f"flash_attention vs ref_attention ({label}): max err {float(ref_err.max())}")
+        errs["flash_attention"] = max(errs["flash_attention"], float(err.max()))
+        del q, k, v, got, want, ref
+    torch.cuda.synchronize()
+    print(f"flash_attention vs plain: ok in {len(fa_cases)} cases (f32 / bf16, causal / full, "
+          f"window 64, GQA 2:1, MQA, Sq < Skv, D 16-128, S 64-2048, the stage's (8, 2048) and "
+          f"(4, 1024) buckets); max err {errs['flash_attention']:.3e}")
 
     # ------------------------------------------------------------ 4. main path
     cfg = SolveConfig(solver="cobi", iterations=ITERATIONS, reads=READS, steps=STEPS)
@@ -779,6 +868,225 @@ def main() -> None:
               lambda bank: drive_lockstep(bank, bank.drain, mfarm_cfg)[0])
     print(f"mcmc paths: direct, decomposed and {n_docs} documents equal their inline solves bitwise")
 
+    # ------------------------------------------------------------ 4d. the encoder backbone
+    # sbert-paper at full width (12 layers, d 768, 12 heads of 64, SwiGLU
+    # 3072, bf16), weights from the port's own init_params(seed 0).  The
+    # traffic: the direct document and the farm mix's documents that fit
+    # max_len = 2048 (n <= 26; the longer ones the reference truncates):
+    # two jobs in the 1024 bucket, eight in the 2048 bucket.
+    enc_cfg = get_config("sbert-paper")
+    enc_model = init_params(enc_cfg, 0)
+    enc_docs = [("direct", sents, 6)] + [
+        (f"farm{i} n={n}", synthetic_document(100 + i, n), 5)
+        for i, n in enumerate(FARM_SIZES) if n <= ENCODER_MAX_SIZE]
+    enc_tokens = sum(1 + sum(len(t.encode("utf-8")) + 1 for t in d) for _, d, _ in enc_docs)
+
+    def encode_all(impl: str) -> tuple:
+        """Submit every document at once to a fresh stage; returns the
+        stage (closed), the embeddings, the receipts and the flash launches
+        of its drains (prewarm excluded)."""
+        stage = EncoderStage(enc_cfg, enc_model, max_len=2048, attn_impl=impl, linger=0.05)
+        for length, b_pad in ((1024, 4), (2048, 8)):
+            stage.prewarm(lengths=[length], batches=[b_pad], segments=[32])
+        reset_counts()
+        futs = [stage.submit(d, tag=i) for i, (_, d, _) in enumerate(enc_docs)]
+        embs = [f.result(timeout=600) for f in futs]
+        c = counts()
+        stage.close()
+        return stage, embs, [f.receipt() for f in futs], c
+
+    enc_paths = {}
+    for impl in ("flash", "sdpa", "auto"):
+        t0 = time.perf_counter()
+        stage, embs, receipts, c = encode_all(impl)
+        wall = time.perf_counter() - t0
+        st = stage.stats()
+        want = expect(flash_attention=enc_cfg.n_layers * st.launches if impl == "flash" else 0)
+        if c != want:
+            fail(f"encoder {impl}: launches {c} != {want} ({st.launches} stage launches)")
+        if impl == "flash":
+            launches["flash_attention"] += c["flash_attention"]
+        for (name, d, _), e in zip(enc_docs, embs):
+            if e.shape != (len(d), enc_cfg.d_model) or not bool(torch.isfinite(e).all()):
+                fail(f"encoder {impl} {name}: embeddings {tuple(e.shape)} not finite / not "
+                     f"({len(d)}, {enc_cfg.d_model})")
+        per_bucket = {}
+        for r in receipts:
+            per_bucket[r.padded_len] = per_bucket.get(r.padded_len, 0.0) + r.encoder_seconds
+        print(f"encoder {impl}: {len(enc_docs)} documents {enc_tokens} tokens, stage wall "
+              f"{wall:.3f} s (with prewarm), encode wall per bucket (s) "
+              + " ".join(f"{k}: {v:.6f}" for k, v in sorted(per_bucket.items()))
+              + f", tokens/s {st.tokens / st.busy_seconds:.1f}, launches {c}")
+        print(f"encoder {impl} stats: {dataclasses.asdict(st)}")
+        print(f"encoder {impl} busy intervals (s): "
+              f"{[(round(a - stage._t0, 6), round(b - stage._t0, 6)) for a, b in stage.busy_intervals()]}")
+        enc_paths[impl] = (embs, receipts)
+        if impl == "flash":
+            stage_walls = per_bucket
+    for r in enc_paths["flash"][1]:
+        print(f"encoder flash receipt: {dataclasses.asdict(r)}")
+
+    # Flash against sdpa and auto on the same texts.
+    flash_embs = enc_paths["flash"][0]
+    for impl in ("sdpa", "auto"):
+        other = enc_paths[impl][0]
+        err = max(float((a - b).abs().max()) for a, b in zip(flash_embs, other))
+        cos = min(float(torch.nn.functional.cosine_similarity(a, b, dim=-1).min())
+                  for a, b in zip(flash_embs, other))
+        print(f"encoder flash vs {impl}: max abs err {err:.3e}, min sentence cosine {cos:.6f}")
+        if cos < 0.999:
+            fail(f"encoder flash vs {impl}: min sentence cosine {cos} < 0.999")
+
+    # Batch composition: the direct document (row 0 of the 2048 drain of
+    # eight) alone in a padded batch of the same shape, through the stage's
+    # own batch function, bit for bit; and through a fresh stage's solo
+    # submit (a batch padded to 4), printed.
+    tok = ByteTokenizer()
+    d_tokens, d_segs = tok.encode_sentences(sents, 2048)
+    tokens8 = torch.zeros((8, 2048), dtype=torch.int32, device=dev)
+    segs8 = torch.full((8, 2048), -1, dtype=torch.int32, device=dev)
+    tokens8[0], segs8[0] = torch.from_numpy(d_tokens), torch.from_numpy(d_segs)
+    alone = enc_serving._embed_batch(enc_cfg.replace(attn_impl="flash"), enc_model, tokens8,
+                                     segs8, 32)[0, :len(sents)]
+    if not torch.equal(alone, flash_embs[0]):
+        fail(f"direct document alone in a batch of 8 != its batched drain: max err "
+             f"{float((alone - flash_embs[0]).abs().max())}")
+    with EncoderStage(enc_cfg, enc_model, max_len=2048, attn_impl="flash") as solo_stage:
+        f = solo_stage.submit(sents)
+        solo = f.result(timeout=600)
+    print(f"encoder batch composition: direct document alone in a padded batch of 8 == batched "
+          f"drain bit for bit; solo submit (padded batch {enc_serving._bucket(1, 4)}, "
+          f"{f.receipt().batch_jobs} job) max abs diff {float((solo - flash_embs[0]).abs().max()):.3e}")
+
+    # The synchronous twin: BackboneEncoder pads the direct document to
+    # max_len alone (batch 1) and runs the same pass; 12 flash launches.
+    flash_cfg = enc_cfg.replace(attn_impl="flash")
+    reset_counts()
+    benc = BackboneEncoder(flash_cfg, enc_model, max_len=2048).encode(sents)
+    c = counts()
+    if c != expect(flash_attention=enc_cfg.n_layers):
+        fail(f"BackboneEncoder launches {c} != {enc_cfg.n_layers} flash")
+    launches["flash_attention"] += c["flash_attention"]
+    cos = float(torch.nn.functional.cosine_similarity(benc, flash_embs[0], dim=-1).min())
+    print(f"encoder BackboneEncoder: direct document at batch 1, max abs diff "
+          f"{float((benc - flash_embs[0]).abs().max()):.3e} from the stage's row, min sentence "
+          f"cosine {cos:.6f}")
+    if benc.shape != flash_embs[0].shape or cos < 0.999:
+        fail(f"BackboneEncoder {tuple(benc.shape)} vs the stage's row: min cosine {cos}")
+    if args.save_embeddings:
+        saved = {name.split()[0]: e.float().cpu().numpy()
+                 for (name, _, _), e in zip(enc_docs, flash_embs)
+                 if name.split()[0] in ("direct", "farm1")}
+        Path(args.save_embeddings).parent.mkdir(parents=True, exist_ok=True)
+        np.savez_compressed(args.save_embeddings, **saved)
+        print(f"encoder embeddings saved: {sorted(saved)} to {args.save_embeddings}")
+
+    # The slice end to end: each path's embeddings -> mu/beta -> solve_es on
+    # the card with SolveConfig().  As in phase 4, the direct document's
+    # flash summary must clear the reference's bar, and every flash summary
+    # must come within 0.05 (normalized) of the plain versions' solve of the
+    # same embeddings on the CPU.
+    def solve_embedded(d, m, e, device):
+        prob = problem_from_sentences(d, m=m, lam=0.5, device=device,
+                                      encoder=types.SimpleNamespace(encode=lambda _s: e))
+        erep = solve_es(prob, key, SolveConfig(), device=device)
+        return erep, float(metrics.normalized_objective(erep.objective,
+                                                        metrics.reference_bounds(prob)))
+
+    cpu_scores = {name: solve_embedded(d, m, e.cpu(), "cpu")[1]
+                  for (name, d, m), e in zip(enc_docs, enc_paths["flash"][0])}
+    reset_counts()
+    for impl, (embs, _) in enc_paths.items():
+        for (name, d, m), e in zip(enc_docs, embs):
+            erep, escore = solve_embedded(d, m, e, dev)
+            print(f"encoder {impl} {name}: N={len(d)} M={m} selected "
+                  f"{erep.selection.nonzero()[0].tolist()} norm_obj {escore:.6f}"
+                  + (f" (plain on CPU {cpu_scores[name]:.6f})" if impl == "flash" else ""))
+            if impl != "flash":
+                continue
+            if erep.selection.sum() != m or abs(escore - cpu_scores[name]) > 0.05:
+                fail(f"encoder flash {name}: selects {erep.selection.sum()} of {m}, normalized "
+                     f"objective {escore} vs {cpu_scores[name]} on the CPU")
+            if name == "direct" and escore <= 0.8:
+                fail(f"encoder flash direct: normalized objective {escore} <= 0.8")
+    c = counts()
+    n_solves = len(enc_paths) * len(enc_docs) * SolveConfig().iterations
+    if c != expect(cobi_trajectory=n_solves, ising_energy=n_solves):
+        fail(f"encoder solves launches {c}")
+    for name in counted:
+        launches[name] += c[name]
+
+    # The query cache: a repeated submit_query is a hit with the same row.
+    with EncoderStage(enc_cfg, enc_model, max_len=2048, attn_impl="flash") as qstage:
+        e1 = qstage.submit_query(sents[0]).result(timeout=600)
+        e2 = qstage.submit_query(sents[0]).result(timeout=600)
+        print(f"encoder query cache: {qstage.cache_stats()}")
+        if not torch.equal(e1, e2) or qstage.cache_stats()["hits"] != 1:
+            fail("encoder query cache: the repeated query was not a bit-identical hit")
+
+    # ------------------------------------------------------------ 4e. where the encode time goes
+    # Each bucket's pass again, warm, on this thread, timed to a
+    # synchronise, against the stage's first drain of that bucket (its
+    # prewarm ran on the drive thread, so that pass should be warm too);
+    # then the 2048 bucket's pass under torch.profiler, its device time
+    # split by kernel: flash, cuBLAS GEMMs, the rest; what the device does
+    # not cover of the wall is idle.
+    passes, warm = {}, {}
+    for length in (1024, 2048):
+        group = [d for (_, d, _), r in zip(enc_docs, enc_paths["flash"][1]) if r.padded_len == length]
+        b_pad = enc_serving._bucket(len(group), enc_serving.BATCH_BUCKET)
+        tk = torch.zeros((b_pad, length), dtype=torch.int32, device=dev)
+        sg = torch.full((b_pad, length), -1, dtype=torch.int32, device=dev)
+        for i, d in enumerate(group):
+            t_np, s_np = tok.encode_sentences(d, length)
+            tk[i], sg[i] = torch.from_numpy(t_np), torch.from_numpy(s_np)
+        passes[length] = lambda tk=tk, sg=sg: enc_serving._embed_batch(flash_cfg, enc_model, tk, sg, 32)
+        passes[length]()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            passes[length]()
+        torch.cuda.synchronize()
+        warm[length] = (time.perf_counter() - t0) / 5
+    print("encoder warm pass on the main thread (s): "
+          + " ".join(f"{k}: {v:.6f}" for k, v in warm.items()))
+    for length, w in warm.items():
+        ratio = stage_walls[length] / w
+        print(f"encoder first drain vs warm, {length} bucket: stage {stage_walls[length]:.6f} s, "
+              f"warm {w:.6f} s, ratio {ratio:.3f}")
+        if ratio > 1.5:
+            fail(f"encoder {length} bucket: the prewarmed stage's first pass took {ratio:.2f}x "
+                 f"the warm pass")
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        passes[2048]()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    split, kernels_us = {"flash": 0.0, "gemm": 0.0, "other": 0.0}, {}
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA or ev.self_device_time_total <= 0:
+            continue
+        name, us = ev.key, ev.self_device_time_total
+        kernels_us[name] = us
+        low = name.lower()
+        kind = ("flash" if "flash_attention_kernel" in name
+                else "gemm" if any(x in low for x in ("gemm", "nvjet", "xmma", "cutlass")) else "other")
+        split[kind] += us
+    busy_ms = sum(split.values()) / 1e3
+    if busy_ms <= 0:
+        print("encoder profile: the profiler recorded no device time: split not measured")
+    else:
+        print(f"encoder profile, 2048 bucket (B=8): wall {wall * 1e3:.3f} ms, device busy "
+              f"{busy_ms:.3f} ms (idle share {1 - busy_ms / (wall * 1e3):.4f}); flash "
+              f"{split['flash'] / 1e3:.3f} ms, GEMMs {split['gemm'] / 1e3:.3f} ms, other kernels "
+              f"{split['other'] / 1e3:.3f} ms")
+        top = sorted(kernels_us.items(), key=lambda kv: -kv[1])[:10]
+        print("encoder profile, top kernels (ms): "
+              + "; ".join(f"{n[:60]} {us / 1e3:.3f}" for n, us in top))
+    del enc_paths, flash_embs, passes
+
     # ------------------------------------------------------------ 5. timing
     op, mask, rd = operands(READS, k_solve)
     full = dict(steps=STEPS, dt=0.35, ks_max=1.2)
@@ -899,6 +1207,35 @@ def main() -> None:
         print(f"time {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {b_ms:.6f} ms ({by}) at B=1 R={READS} N=128 128 proposals a sweep, "
               f"{u_ms:.6f} ms ({u_by}) at N={inst.n}; sweeps={MCMC_SWEEPS}")
+    # Flash attention at the stage's buckets (bf16, causal, 12 heads of 64):
+    # the kernel, its plain version, and one PyTorch call of the same
+    # function as a yardstick (the port never calls it).  The bound counts
+    # 4 B H D flops per unmasked (q, k) pair, S (S + 1) / 2 pairs, on the
+    # bf16 tensor cores, and q, k, v, o once each.
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for b, s_len in ((8, 2048), (4, 1024)):
+        q, k, v = attn_inputs(b, s_len, s_len, 12, 12, 64, bf16)
+        ms = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v), reps=20)
+        plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v), reps=5, warmup=1)
+        lib_ms = cuda_ms(lambda: sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                      is_causal=True), reps=50)
+        flops = 4 * b * 12 * 64 * (s_len * (s_len + 1) // 2)
+        nbytes = 4 * q.numel() * q.element_size()
+        b_ms, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
+        if (b, s_len) == (8, 2048):
+            rows.append({
+                "name": "flash_attention", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                "replaces": "src/repro/kernels/flash_attention.py:75",
+                "launches": launches["flash_attention"],
+                "max_abs_err": errs["flash_attention"], "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms,
+            })
+        print(f"time flash_attention at B={b} S={s_len} H=12 D=64 bf16 causal: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.6f} ms ({by}, "
+              f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); {flops / ms / 1e9:.1f} TFLOP/s")
+        del q, k, v
+
     if any(row["launches"] == 0 for row in rows):
         fail(f"a kernel of the path never launched: {[r['name'] for r in rows if not r['launches']]}")
 

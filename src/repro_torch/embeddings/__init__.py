@@ -1,1 +1,11 @@
-from repro_torch.embeddings.encoder import HashedBowEncoder, problem_from_sentences  # noqa: F401
+from repro_torch.embeddings.encoder import (  # noqa: F401
+    BackboneEncoder,
+    HashedBowEncoder,
+    problem_from_sentences,
+)
+from repro_torch.embeddings.serving import (  # noqa: F401
+    EncodeFuture,
+    EncodeReceipt,
+    EncoderStage,
+    EncoderStats,
+)

@@ -1,9 +1,12 @@
-"""Sentence embedder feeding the Ising pipeline's mu/beta (paper Eqs. 1-2).
+"""Sentence embedders feeding the Ising pipeline's mu/beta (paper Eqs. 1-2).
 
-``HashedBowEncoder``: deterministic hashed bag-of-words with a signed random
-projection per word (numpy + blake2b), training-free, bit-identical to the
-reference's.  The LM-backbone encoder ports with the model stack (ROADMAP
-queue 1: the encoder backbone).
+Two interchangeable backends, as in the reference:
+  * ``HashedBowEncoder``: deterministic hashed bag-of-words with a signed
+    random projection per word (numpy + blake2b), training-free,
+    bit-identical to the reference's.
+  * ``BackboneEncoder``: mean-pooled hidden states per sentence of the
+    dense backbone (``models/``, ``configs/sbert_paper.py``) via
+    ``models.embed_sentences``; ``embeddings/serving.py`` batches it.
 """
 
 from __future__ import annotations
@@ -18,7 +21,9 @@ import torch
 
 from repro_torch.core.formulation import EsProblem
 from repro_torch.data.synthetic import scores_from_embeddings
+from repro_torch.data.tokenizer import ByteTokenizer
 from repro_torch.device import resolve_device
+from repro_torch.embeddings.serving import _embed_batch
 
 _WORD_RE = re.compile(r"[a-z0-9']+")
 
@@ -59,6 +64,22 @@ class HashedBowEncoder:
             else:
                 out[i, 0] = 1.0
         return torch.from_numpy(out)
+
+
+class BackboneEncoder:
+    """Mean-pooled hidden states from the backbone, unit rows, on ``device``
+    (``None``: the card; raises without one; the model moves there)."""
+
+    def __init__(self, cfg, params, max_len: int = 1024, device=None):
+        self.device = resolve_device(device)
+        self.cfg, self.params = cfg, params.to(self.device)
+        self.tok = ByteTokenizer()
+        self.max_len = max_len
+
+    def encode(self, sentences: Sequence[str]) -> torch.Tensor:
+        tokens, seg_ids = self.tok.encode_sentences(list(sentences), self.max_len)
+        return _embed_batch(self.cfg, self.params, torch.from_numpy(tokens)[None].to(self.device),
+                            torch.from_numpy(seg_ids)[None].to(self.device), len(sentences))[0]
 
 
 def problem_from_sentences(

@@ -1,11 +1,12 @@
 """State carried across from the JAX reference.
 
-This system has no weights; what crosses is state: PRNG keys, as the raw
-``(2,)`` uint32 words of ``jax.random.key_data(key)``, and problem instances
-(``EsProblem``'s mu, beta, m, lam and ``IsingProblem``'s h, J) as numpy
-arrays.  :func:`carry_across` turns them into the port's objects, so a test
-can hand the same state to both packages.  Nothing here imports JAX: the
-caller converts to numpy on its side.
+What crosses: PRNG keys, as the raw ``(2,)`` uint32 words of
+``jax.random.key_data(key)``; problem instances (``EsProblem``'s mu, beta,
+m, lam and ``IsingProblem``'s h, J) as numpy arrays; and the encoder
+backbone's weights, the reference's ``init_params`` tree as nested dicts of
+numpy arrays.  :func:`carry_across` turns them into the port's objects, so a
+test can hand the same state to both packages.  Nothing here imports JAX:
+the caller converts to numpy on its side.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 
 from repro_torch.core.formulation import EsProblem, IsingProblem
 from repro_torch.device import resolve_device
+from repro_torch.models.model import model_from_tree
 
 
 def carry_across(kind: str, *arrays, device=None, **fields):
@@ -22,10 +24,13 @@ def carry_across(kind: str, *arrays, device=None, **fields):
 
       * ``carry_across("key", words)`` -> a ``(2,)`` int64 key tensor;
       * ``carry_across("es", mu, beta, m=..., lam=...)`` -> :class:`EsProblem`;
-      * ``carry_across("ising", h, j)`` -> :class:`IsingProblem`.
+      * ``carry_across("ising", h, j)`` -> :class:`IsingProblem`;
+      * ``carry_across("params", tree, cfg=...)`` -> the port's
+        ``models.Model`` (one module per layer of the stacked tree; leaves
+        cast to ``cfg.dtype``).
 
-    Keys live on the CPU, like every key of the port; problems go to
-    ``device`` (``None``: the card; raises without one).
+    Keys live on the CPU, like every key of the port; problems and models
+    go to ``device`` (``None``: the card; raises without one).
     """
     if kind == "key":
         (words,) = arrays
@@ -34,6 +39,9 @@ def carry_across(kind: str, *arrays, device=None, **fields):
             raise ValueError(f"a key is two uint32 words, got shape {words.shape}")
         return torch.tensor(words.astype(np.uint32).astype(np.int64))
     device = resolve_device(device)
+    if kind == "params":
+        (tree,) = arrays
+        return model_from_tree(fields["cfg"], tree, device)
     tensors = [
         torch.tensor(np.asarray(a, np.float32), device=device) for a in arrays
     ]
@@ -43,4 +51,4 @@ def carry_across(kind: str, *arrays, device=None, **fields):
     if kind == "ising":
         h, j = tensors
         return IsingProblem(h=h, j=j)
-    raise ValueError(f"unknown state kind {kind!r}; want 'key', 'es' or 'ising'")
+    raise ValueError(f"unknown state kind {kind!r}; want 'key', 'es', 'ising' or 'params'")

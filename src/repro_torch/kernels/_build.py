@@ -29,7 +29,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("ising_energy", "cobi_dynamics", "mcmc_dynamics")
+SOURCES = ("ising_energy", "cobi_dynamics", "mcmc_dynamics", "flash_attention")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -47,6 +47,7 @@ _ARGTYPES = {
         "mcmc_sweep": [P] * 8 + [I] * 7 + [P],
         "mcmc_fused_best": [P] * 10 + [I] * 7 + [P],
     },
+    "flash_attention": {"flash_attention": [P] * 4 + [I] * 10 + [F, P]},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

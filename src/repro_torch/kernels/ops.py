@@ -38,6 +38,7 @@ from repro_torch.kernels.ising_energy import (
     ising_energy_batched_cuda,
     ising_energy_cuda,
 )
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.mcmc_dynamics import (
     DEFAULT_CHUNK,
     mcmc_fused_best_batched,
@@ -388,3 +389,11 @@ def mcmc_anneal(
         return s[0, :n].to(torch.int8), e[0]
     e, s = mcmc_sweep_batched(*operands, **kw)
     return s[0, :replicas, :n].to(torch.int8), e[0, :replicas]
+
+
+def flash_attention(q, k, v, *, causal=True, window=None):
+    """Blocked attention of q (B, Sq, H, D) over k, v (B, Skv, KV, D) at the
+    reference's 128-row tiles; see kernels/flash_attention.py.  A CUDA
+    tensor launches the kernel (or raises), a CPU tensor runs its plain
+    version."""
+    return flash_attention_cuda(q, k, v, causal=causal, window=window)

@@ -1,10 +1,11 @@
-"""Plain PyTorch oracles of the COBI, Ising-energy and MCMC kernels.
+"""Plain PyTorch oracles of the COBI, Ising-energy, MCMC and attention kernels.
 
 Twins of ``repro.kernels.ref``: the same op order (``j + j``, one stacked
 [cos; sin] @ 2J product, ``sin 2phi = 2 sin phi cos phi``, the float32 ramp
 ``ks_max * (t + 1) / steps``), so on the CPU they track the reference's
 trajectories to rounding and give its integer energies exactly; the MCMC
-oracle gives the reference's spins and energies bit for bit.  They run on
+oracle gives the reference's spins and energies bit for bit; the attention
+oracle is the naive materialised softmax.  They run on
 any device; the kernel wrappers use them for CPU tensors and ``chip_smoke.py``
 holds each CUDA kernel against them on the card.
 """
@@ -273,3 +274,46 @@ def ref_mcmc_sweep(
         j, h, s0, seeds, mcmc_ladder(t_hi, t_lo, sweeps),
         n_real=n if n_real is None else n_real, mode=mode,
     )
+
+
+# ---------------------------------------------------------------------------
+# Attention: naive materialised softmax, causal or full, with an optional
+# sliding window (the flash kernel's oracle).
+# ---------------------------------------------------------------------------
+
+
+def ref_attention(
+    q: torch.Tensor,  # (B, Sq, H, D)
+    k: torch.Tensor,  # (B, Skv, KH, D)
+    v: torch.Tensor,  # (B, Skv, KH, D)
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Attention of right-aligned queries (``q_pos = i + Skv - Sq``); query
+    head h reads kv head ``h // (H / KH)``.  The logits are taken in the
+    inputs' type and then widened to float32, masked with -inf, and
+    softmaxed in float32; the output comes back in ``q``'s type."""
+    b, sq, h, d = q.shape
+    skv, kh = k.shape[1], k.shape[2]
+    if h % kh:
+        raise ValueError(f"{h} query heads do not share {kh} kv heads evenly")
+    rep = h // kh
+    if rep > 1:
+        k = k.repeat_interleave(rep, dim=2)
+        v = v.repeat_interleave(rep, dim=2)
+    if scale is None:
+        scale = 1.0 / (d**0.5)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32) * scale
+    q_pos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+    k_pos = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window is not None:
+        mask &= k_pos > q_pos - window
+    logits = logits.masked_fill(~mask, -torch.inf)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, v.to(torch.float32))
+    return out.to(q.dtype)

@@ -1,0 +1,143 @@
+"""Self-attention of the dense family in train mode: twins of
+``repro.models.attention`` (GQA / MQA, QKV bias, sliding window, RoPE).
+
+Three routes, chosen as the reference chooses them (``self_attention``):
+the flash kernel (``cfg.attn_impl == "flash"``, ``kernels/ops.py``), the
+chunked online softmax (``_sdpa_chunked``, "auto" at S a multiple of
+``cfg.attn_chunk`` above it), and the naive softmax (``_sdpa``).  Prefill
+and decode caches and cross-attention are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.models.common import apply_rope, not_ported, param
+
+NEG_INF = -1e30
+
+
+class Attention(torch.nn.Module):
+    """wq (d, H hd), wk and wv (d, KV hd), wo (H hd, d); bq, bk, bv with
+    ``cfg.qkv_bias``."""
+
+    def __init__(self, cfg, gen: Optional[torch.Generator] = None):
+        super().__init__()
+        d, h, kv, hd, dt = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.dtype
+        self.wq = param(gen, (d, h * hd), dt)
+        self.wk = param(gen, (d, kv * hd), dt)
+        self.wv = param(gen, (d, kv * hd), dt)
+        self.wo = param(gen, (h * hd, d), dt, scale=(h * hd) ** -0.5)
+        if cfg.qkv_bias:
+            self.bq = param(gen, (h * hd,), dt, fill=0.0)
+            self.bk = param(gen, (kv * hd,), dt, fill=0.0)
+            self.bv = param(gen, (kv * hd,), dt, fill=0.0)
+
+
+def _project_qkv(p: Attention, cfg, x, kv_src):
+    b, s, _ = x.shape
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = x @ p.wq
+    k = kv_src @ p.wk
+    v = kv_src @ p.wv
+    if cfg.qkv_bias:
+        q, k, v = q + p.bq, k + p.bk, v + p.bv
+    q = q.reshape(b, s, h, hd)
+    k = k.reshape(b, kv_src.shape[1], kv, hd)
+    v = v.reshape(b, kv_src.shape[1], kv, hd)
+    return q, k, v
+
+
+def _sdpa(q, k, v, mask, scale, probs_dtype=None):
+    """q: (B,Sq,H,hd), k/v: (B,Skv,KV,hd), mask: (B,Sq,Skv) bool or None.
+    The logits are taken in the working type and then widened to float32,
+    as the reference's einsum does."""
+    h, kv = q.shape[2], k.shape[2]
+    rep = h // kv
+    if rep > 1:
+        k = k.repeat_interleave(rep, dim=2)
+        v = v.repeat_interleave(rep, dim=2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32) * scale
+    if mask is not None:
+        logits = torch.where(mask[:, None], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", probs.to(probs_dtype or q.dtype), v)
+
+
+def _sdpa_chunked(q, k, v, positions, scale, *, causal, window, chunk, probs_dtype=None):
+    """Online-softmax attention over KV blocks of ``chunk`` (the reference's
+    ``lax.scan``): the (Sq, Skv) score matrix never exists at once."""
+    b, sq, h, d = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    rep = h // kvh
+    if skv % chunk:
+        raise ValueError(f"{skv} keys are not blocks of {chunk}")
+    q32 = q.to(torch.float32)
+    q_pos = positions[:, :, None]  # (B, Sq, 1)
+    if positions.shape[1] == skv:
+        k_pos_all = positions[:, :skv]
+    else:
+        k_pos_all = torch.arange(skv, device=q.device)[None].expand(b, skv)
+    m = torch.full((b, h, sq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, sq, h, d), dtype=torch.float32, device=q.device)
+    for k0 in range(0, skv, chunk):
+        kk, vv = k[:, k0:k0 + chunk], v[:, k0:k0 + chunk]
+        if rep > 1:
+            kk, vv = kk.repeat_interleave(rep, dim=2), vv.repeat_interleave(rep, dim=2)
+        k_pos = k_pos_all[:, k0:k0 + chunk]
+        s = torch.einsum("bqhd,bkhd->bhqk", q32, kk.to(torch.float32)) * scale
+        mask = torch.ones((b, sq, chunk), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= k_pos[:, None, :] <= q_pos
+        if window is not None:
+            mask &= k_pos[:, None, :] > q_pos - window
+        s = torch.where(mask[:, None], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        pv = torch.einsum("bhqk,bkhd->bqhd", p.to(probs_dtype or q.dtype), vv).to(torch.float32)
+        acc = acc * alpha.transpose(1, 2)[..., None] + pv
+        m = m_new
+    denom = torch.clamp(l, min=1e-30).transpose(1, 2)[..., None]
+    return (acc / denom).to(q.dtype)
+
+
+def self_attention(p: Attention, cfg, x, positions, *, mode: str = "train",
+                   causal: bool = True) -> torch.Tensor:
+    """Train-mode self-attention of x (B, S, d) at positions (B, S)."""
+    if mode != "train":
+        raise not_ported(f"attention mode {mode!r}", "queue 1: prefill and decode caches")
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(p, cfg, x, x)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    scale = cfg.hd**-0.5
+    w = cfg.sliding_window
+    probs_dtype = torch.bfloat16 if cfg.attn_probs_bf16 else None
+    chunk = cfg.attn_chunk
+    impl = cfg.attn_impl
+    # The flash kernel derives positions from block indices, which matches
+    # the contiguous positions of train/encode calls, and the sequence must
+    # tile into its blocks; the encoder stage's power-of-two length buckets
+    # satisfy both by construction.
+    if impl == "flash" and s % min(128, s) == 0 and q.shape[-1] <= 128:
+        out = ops.flash_attention(q, k, v, causal=causal, window=w)
+    elif impl != "sdpa" and chunk and s % chunk == 0 and s > chunk:
+        out = _sdpa_chunked(q, k, v, positions, scale, causal=causal, window=w, chunk=chunk,
+                            probs_dtype=probs_dtype)
+    else:
+        q_pos = positions[:, :, None]  # (B, S, 1)
+        k_pos = positions[:, None, :]  # (B, 1, S)
+        if causal:
+            mask = k_pos <= q_pos
+        else:
+            mask = torch.ones((b, s, s), dtype=torch.bool, device=x.device)
+        if w is not None and causal:
+            mask &= k_pos > q_pos - w
+        out = _sdpa(q, k, v, mask, scale, probs_dtype=probs_dtype)
+    return out.reshape(b, s, -1) @ p.wo

@@ -1,0 +1,93 @@
+"""Shared neural building blocks: twins of ``repro.models.common``.
+
+Weights are held as the reference holds them, (in, out) for ``x @ w``; the
+modules of ``models/`` are containers of parameters and the functions here
+and in ``attention``, ``mlp`` and ``model`` apply them, as the reference's
+pure functions apply its pytrees.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+
+def not_ported(what: str, item: str) -> NotImplementedError:
+    """The error for a part of the reference's model stack the port has not
+    reached; ``item`` names its ROADMAP item by title."""
+    return NotImplementedError(f"{what} is not ported to repro_torch yet: ROADMAP {item}")
+
+
+def dense_init(gen: torch.Generator, shape, dtype, scale: Optional[float] = None):
+    """Truncated-normal (+-2 sigma) fan-in init from ``gen``, drawn on the
+    generator's device.  The reference's distribution, not its numbers:
+    carry its weights across (``interop.carry_across("params", ...)``) where
+    the numbers must agree."""
+    fan_in = shape[0] if len(shape) > 1 else shape[-1]
+    std = scale if scale is not None else fan_in**-0.5
+    t = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return (t * std).to(dtype)
+
+
+def param(gen: Optional[torch.Generator], shape, dtype, scale: Optional[float] = None,
+          fill: Optional[float] = None) -> torch.nn.Parameter:
+    """A frozen parameter: ``fill`` everywhere if given, else ``dense_init``
+    from ``gen``, else uninitialised (for weights carried across).  Frozen
+    because this slice serves; training turns gradients on."""
+    device = gen.device if gen is not None else None
+    if fill is not None:
+        t = torch.full(shape, fill, dtype=dtype, device=device)
+    elif gen is not None:
+        t = dense_init(gen, shape, dtype, scale)
+    else:
+        t = torch.empty(shape, dtype=dtype)
+    return torch.nn.Parameter(t, requires_grad=False)
+
+
+class RMSNorm(torch.nn.Module):
+    def __init__(self, dim: int, dtype, gen: Optional[torch.Generator] = None):
+        super().__init__()
+        self.scale = param(gen, (dim,), dtype, fill=1.0)
+
+
+def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Root-mean-square norm in float32, back in ``x``'s type."""
+    dtype = x.dtype
+    x = x.to(torch.float32)
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * scale.to(torch.float32)).to(dtype)
+
+
+def activation(name: str):
+    return {
+        "silu": F.silu,
+        "gelu": lambda x: F.gelu(x, approximate="tanh"),  # jax.nn.gelu's default
+        "relu2": lambda x: torch.square(F.relu(x)),  # nemotron/minitron
+        "tanh": torch.tanh,
+    }[name]
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta**exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (B, S, H, D); positions: (B, S) absolute token positions."""
+    d = x.shape[-1]
+    freqs = rope_frequencies(d, theta, device=x.device)  # (D/2,)
+    angles = positions[..., None].to(torch.float32) * freqs  # (B, S, D/2)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)

@@ -117,18 +117,23 @@ def test_solve_es_without_device_raises_without_gpu():
 
 @pytest.mark.parametrize("entry", ["bits", "uniform", "problem_from_sentences", "carry_across",
                                    "uniform_many", "CobiFarm", "solve_many", "solve_batch",
-                                   "McmcPoolBackend", "solve_es_mcmc"])
+                                   "McmcPoolBackend", "solve_es_mcmc", "init_params",
+                                   "BackboneEncoder", "EncoderStage"])
 def test_entry_points_default_to_the_card(entry):
     """Without ``device=`` every entry point that makes tensors asks for the
     card, and raises here, where there is none."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid here")
     from repro_torch import prng
+    from repro_torch.configs.base import get_config
+    from repro_torch.embeddings import BackboneEncoder, EncoderStage
     from repro_torch.farm import CobiFarm, McmcPoolBackend, solve_many
+    from repro_torch.models import init_params
     from repro_torch.solvers.cobi import solve_batch
 
     _, tp = _system_instance()
     ising = improved_ising(tp)
+    enc_cfg = get_config("sbert-paper").reduced()
     calls = {
         "bits": lambda: prng.bits(prng.key(0), (4,)),
         "uniform": lambda: prng.uniform(prng.key(0), (4,)),
@@ -141,6 +146,9 @@ def test_entry_points_default_to_the_card(entry):
         "solve_batch": lambda: solve_batch([ising], [prng.key(0)], check=False),
         "McmcPoolBackend": lambda: McmcPoolBackend(),
         "solve_es_mcmc": lambda: solve_es(tp, prng.key(0), SolveConfig(solver="mcmc")),
+        "init_params": lambda: init_params(enc_cfg, 0),
+        "BackboneEncoder": lambda: BackboneEncoder(enc_cfg, init_params(enc_cfg, 0, device="cpu")),
+        "EncoderStage": lambda: EncoderStage.tiny(),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
