@@ -6,7 +6,10 @@ at first use into ``build/kernels/`` at the repository root, named by a hash
 of the sources, so a stale library is never loaded.  :func:`build_all` starts
 one ``nvcc`` per source at once; a failed build raises with the compiler's
 output.  Nothing here runs at import time: this module is imported on
-machines with no CUDA toolkit.
+machines with no CUDA toolkit.  No library links ``libcuda``: the flash
+kernel's tensor maps need the driver's ``cuTensorMapEncodeTiled``, which
+its source fetches at run time through the CUDA runtime's entry-point
+lookup.
 
 Thread-safe: the chip farm launches from its background drive thread and the
 MCMC pool from its workers while the caller may launch from its own, so one
@@ -47,7 +50,10 @@ _ARGTYPES = {
         "mcmc_sweep": [P] * 8 + [I] * 7 + [P],
         "mcmc_fused_best": [P] * 10 + [I] * 7 + [P],
     },
-    "flash_attention": {"flash_attention": [P] * 4 + [I] * 10 + [F, P]},
+    "flash_attention": {
+        "flash_attention": [P] * 4 + [I] * 10 + [F, P],
+        "flash_attention_wgmma": [P] * 4 + [I] * 9 + [F, P],
+    },
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -121,11 +127,14 @@ def library(name: str) -> ctypes.CDLL:
         return lib
 
 
-def count_launch(wrapper) -> None:
-    """Add one to ``wrapper.launches``.  Under a lock: the MCMC pool's worker
-    threads launch at once, and a bare ``+= 1`` can lose a count."""
+def count_launch(wrapper, route: str | None = None) -> None:
+    """Add one to ``wrapper.launches`` (and to ``wrapper.route_launches[route]``
+    for a wrapper with more than one kernel).  Under a lock: the MCMC pool's
+    worker threads launch at once, and a bare ``+= 1`` can lose a count."""
     with _COUNT_LOCK:
         wrapper.launches += 1
+        if route is not None:
+            wrapper.route_launches[route] += 1
 
 
 def check(err: int, what: str) -> None:

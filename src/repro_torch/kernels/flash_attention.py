@@ -12,11 +12,18 @@ reference, float32 or bfloat16.
     -inf), p rounded to v's type before the PV product, the output
     ``acc / max(l, 1e-30)`` in q's type.  Query blocks do not enter: each
     query row's state is its own, so all rows are done at once.
-  * :func:`flash_attention_cuda` launches ``csrc/flash_attention.cu`` on a
-    CUDA tensor (or raises) and runs the plain version on a CPU tensor; it
-    counts its launches in ``.launches``.  The kernel walks its own tiles
-    of 64 keys, so on the card the two differ only in float32 summation
-    order (and, in bf16, in where p is rounded relative to a running max).
+  * :func:`flash_attention_cuda` launches one of the two kernels of
+    ``csrc/flash_attention.cu`` on a CUDA tensor (or raises) and runs the
+    plain version on a CPU tensor; :func:`route` picks the kernel from the
+    type and head dim.  bf16 at a padded D of 64 or 128 takes
+    ``flash_attention_wgmma`` (tensor cores, 128-key tiles: the plain
+    version's blocks, so the two differ only in float32 rounding: the
+    products' summation order, exp as the card's exp2 of a score scaled by
+    log2 e, and the output scaled by the reciprocal of l);
+    float32, and bf16 at D 16 or 32, take ``flash_attention``, the float32
+    FMA kernel (64-key tiles, so in bf16 p is also rounded against another
+    running max).  It counts its launches in ``.launches`` and, by route,
+    in ``.route_launches``.
 """
 
 from __future__ import annotations
@@ -26,7 +33,26 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)  # the kernel's; other D <= 128 (zamba2's 80) pad up to one
+HEAD_DIMS = (16, 32, 64, 128)  # the kernels'; other D <= 128 (zamba2's 80) pad up to one
+WGMMA_HEAD_DIMS = (64, 128)
+# The kernels' names as a profiler reports them (substrings of the mangled
+# names), one per route: "fma", then "wgmma".
+KERNEL_NAMES = ("flash_attention_kernel", "flash_attention_wgmma_kernel")
+
+
+def padded_head_dim(d: int) -> int:
+    """The head dim the kernels run at: the least of HEAD_DIMS >= d."""
+    if d > HEAD_DIMS[-1]:
+        raise ValueError(f"head dim {d} > {HEAD_DIMS[-1]}: the kernels hold at most 128")
+    return next(x for x in HEAD_DIMS if x >= d)
+
+
+def route(dtype, d: int) -> str:
+    """The kernel that takes q of this type and head dim: "wgmma" for bf16
+    at a padded D of 64 or 128, else "fma" (float32 stays off the tensor
+    cores, where it would run as TF32)."""
+    dp = padded_head_dim(d)
+    return "wgmma" if dtype == torch.bfloat16 and dp in WGMMA_HEAD_DIMS else "fma"
 
 
 def _blocks(q, k, v, block_q: int, block_k: int) -> tuple[int, int]:
@@ -98,22 +124,26 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=None):
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
     if any(t.device != q.device for t in (k, v)):
         raise ValueError("q, k and v must lie on one device")
-    if d > HEAD_DIMS[-1]:
-        raise ValueError(f"head dim {d} > {HEAD_DIMS[-1]}: the kernel holds at most 128")
-    dp = next(x for x in HEAD_DIMS if x >= d)
+    dp = padded_head_dim(d)
     if dp != d:  # zero columns change no dot product; the output's are cut off
         q, k, v = (torch.nn.functional.pad(t, (0, dp - d)) for t in (q, k, v))
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
-    err = _build.library("flash_attention").flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, skv, h, kvh, dp,
-        int(dt == torch.bfloat16), int(causal), int(window is not None),
-        int(window) if window is not None else 0, d**-0.5,
-        _build.stream_of(q),
-    )
-    _build.check(err, "flash_attention")
-    _build.count_launch(flash_attention_cuda)
+    lib = _build.library("flash_attention")
+    window_args = (int(window is not None), int(window) if window is not None else 0, d**-0.5)
+    kind = route(dt, d)
+    if kind == "wgmma":
+        err = lib.flash_attention_wgmma(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, skv, h, kvh, dp,
+            int(causal), *window_args, _build.stream_of(q))
+    else:
+        err = lib.flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, skv, h, kvh, dp,
+            int(dt == torch.bfloat16), int(causal), *window_args, _build.stream_of(q))
+    _build.check(err, f"flash_attention ({kind})")
+    _build.count_launch(flash_attention_cuda, kind)
     return out[..., :d] if dp != d else out
 
 
 flash_attention_cuda.launches = 0
+flash_attention_cuda.route_launches = {"fma": 0, "wgmma": 0}

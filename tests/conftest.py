@@ -11,3 +11,9 @@ except ModuleNotFoundError:  # property tests importorskip hypothesis themselves
 else:
     settings.register_profile("ci", max_examples=25, deadline=None)
     settings.load_profile("ci")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and the CUDA toolkit; skips (naming what is "
+        "missing) where torch.cuda.is_available() is False")

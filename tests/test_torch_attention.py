@@ -6,7 +6,10 @@ Bars: 2e-5 for float32 against the JAX flash kernel (the same blocked
 algorithm; only the summation order differs), 1.6e-2 (about two bf16 ulps
 of the output) for bf16 against it; 2e-3 for float32 and 3e-2 for bf16
 against the naive oracle (the reference's own bounds,
-tests/test_kernels_attention.py).
+tests/test_kernels_attention.py).  The kernels themselves run only on the
+card: the ``cuda`` tests hold them against the plain version there, at the
+same bars, and skip elsewhere; on the card, with no JAX installed, run them
+alone: ``PYTHONPATH=src python3 -m pytest -q -m cuda tests/test_torch_attention.py``.
 """
 
 import numpy as np
@@ -14,12 +17,16 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-import jax.numpy as jnp
+try:
+    import jax.numpy as jnp
 
-from repro.kernels.flash_attention import flash_attention as jflash
-from repro.kernels.ref import ref_attention as jref_attention
+    from repro.kernels.flash_attention import flash_attention as jflash
+    from repro.kernels.ref import ref_attention as jref_attention
+except ModuleNotFoundError:  # a machine with a card but no JAX runs only the cuda tests
+    jnp = jflash = jref_attention = None
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as kref
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
 
 F32_FLASH, BF16_FLASH = 2e-5, 1.6e-2
@@ -108,3 +115,75 @@ def test_cudaless_call_raises_naming_cuda():
     q = torch.zeros(1, 64, 2, 16, device="meta")
     with pytest.raises(ValueError, match="CUDA tensors"):
         flash_attention_cuda(q, q, q)
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    *[(torch.bfloat16, d, "wgmma") for d in (64, 128, 80, 48, 100)],
+    *[(torch.bfloat16, d, "fma") for d in (8, 16, 32)],
+    *[(torch.float32, d, "fma") for d in (8, 16, 32, 64, 80, 128)],
+])
+def test_route_by_type_and_padded_head_dim(dtype, d, want):
+    """bf16 at a padded D of 64 or 128 (every full-width config; zamba2's 80
+    pads to 128) takes the wgmma kernel; float32 at any D, and bf16 at D 16
+    or 32, the float32 FMA kernel."""
+    assert fa.route(dtype, d) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_route_raises_above_128(dtype):
+    with pytest.raises(ValueError, match="at most 128"):
+        fa.route(dtype, 129)
+
+
+def test_kernel_names_tell_the_routes_apart():
+    """The profile split in chip_smoke.py classifies a kernel by these
+    substrings of its name: neither may contain the other."""
+    fma_name, wgmma_name = fa.KERNEL_NAMES
+    assert fma_name not in wgmma_name and wgmma_name not in fma_name
+
+
+WGMMA_CASES = [  # the wgmma kernel's 128-key tiles are the plain version's default blocks
+    (1, 256, 256, 8, 2, 128, True, 64),  # GQA 4:1, sliding window 64, D 128
+    (1, 256, 256, 4, 2, 64, True, None),
+    (1, 128, 128, 2, 2, 128, False, None),
+]
+
+
+@pytest.mark.parametrize("b,sq,skv,h,kv,d,causal,window", WGMMA_CASES)
+def test_plain_matches_jax_flash_at_wgmma_route(b, sq, skv, h, kv, d, causal, window):
+    """bf16 at the shapes the wgmma route takes, at the default 128-row
+    tiles on both sides: the plain version (the wgmma kernel's CPU
+    counterpart) against the JAX flash kernel in interpret mode (1.6e-2)
+    and the naive oracle (3e-2)."""
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(sq + d + h + 1, b, sq, skv, h, kv, d), "bfloat16")
+    assert fa.route(tq.dtype, d) == "wgmma"
+    kw = dict(causal=causal, window=window)
+    got = flash_attention_cuda(tq, tk, tv, **kw)  # CPU tensors: the plain version
+    assert got.shape == tq.shape and got.dtype == torch.bfloat16
+    _close(got, jflash(jq, jk, jv, interpret=True, **kw), BF16_FLASH)
+    _close(got, jref_attention(jq, jk, jv, **kw), BF16_REF)
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs CUDA: torch.cuda.is_available() is False (no GPU or a CPU-only torch)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,kv,d", [(8, 2048, 12, 12, 64), (8, 2048, 8, 2, 128)])
+def test_wgmma_kernel_matches_plain_on_card(card, b, s, h, kv, d):
+    """On the card: the wgmma kernel at the encoder stage's 2048 bucket (and
+    at D 128 with GQA 4:1) against its plain version (1.6e-2)."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(0)
+    q, k, v = (torch.randn(shape, generator=gen, device=card).to(torch.bfloat16)
+               for shape in ((b, s, h, d), (b, s, kv, d), (b, s, kv, d)))
+    before = flash_attention_cuda.route_launches["wgmma"]
+    got = flash_attention_cuda(q, k, v, causal=True).float()
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.route_launches["wgmma"] == before + 1
+    want = flash_attention_plain(q, k, v, causal=True).float()
+    err = (got - want).abs()
+    assert bool((err <= BF16_FLASH + BF16_FLASH * want.abs()).all()), float(err.max())
