@@ -15,6 +15,13 @@ Phases, each of which must pass or the script exits non-zero:
   3. hold every kernel against its plain PyTorch version on the card, at the
      main path's shapes (8 reads, 128 padded lanes) and at 1024 reads
      (many replica blocks, so the cross-block first-argmin is exercised);
+     the COBI anneal loop's cases: live extents 4, 20, 33, 100, 127 and 128
+     on 128 lanes, an all-zero row and column inside n, a non-symmetric J,
+     R 8 / 64 / 1024, N 256 and 1024 (J in global memory), each within
+     TRAJ_TOL of its plain version at 50 steps, with readout == sign of the
+     trajectory, exact energies and fused == readout + first argmin bitwise;
+     and a packed bin with jobs at lane offsets 3, 21 and 77, each equal to
+     its solo anneal bit for bit;
   3b. the chip farm's batched kernels against their plain versions on packed
      bins of the 16-document mix: the batched trajectory at 50 steps; at 400
      steps the fused batched best against the batched trajectory + sign +
@@ -34,7 +41,11 @@ Phases, each of which must pass or the script exits non-zero:
      under ``policy="bin-full"``, equal to ``manual``; and their 96 rounded
      instances through ``solve_batch(reduce="none")``, the two-launch drain,
      whose first argmins equal the fused winners.  Launch counts are held
-     against what the drains imply;
+     against what the drains imply.  The farm submit split times the
+     roundings as ``_submit_iterations`` makes them (one
+     ``quantize_ising_many`` a document) beside one call per key, holds the
+     two equal, and counts the host syncs of one batched call under
+     ``torch.cuda.set_sync_debug_mode("warn")`` (more than one fails);
   3c. the MCMC kernels against their plain versions, bitwise (spins and
      energies): both proposal modes, reduce none and best, B = 3 instances,
      R = 16 over replica blocks of 8 and 16, chunks of 32, 64 and 128, the
@@ -75,13 +86,16 @@ Phases, each of which must pass or the script exits non-zero:
      its device time split into flash (by kernel name, both routes),
      GEMMs and the rest, and the device's idle share;
   5. time every kernel, its plain version and its bound (at the padded
-     shapes the kernels take, and at the instances' own n spins and reads);
+     shapes the kernels take, and at the instances' own n spins and reads;
+     a COBI anneal row's bound_ms is the latter, since its loop skips the
+     lanes past the live extent);
      the batched kernels at the 16-document drain's shape; the MCMC kernels
      at the main path's shape (B = 1, R = 8, 128 lanes, 50 sweeps); the
      flash kernel at the stage's buckets, beside the FMA kernel called
      directly at bf16 and one SDPA call as its yardstick, with each one's
      achieved TFLOP/s;
-  6. print the ``kernels`` JSON line, the card line, and last the result line.
+  6. print the ``kernels`` JSON line, the card line, and last the result
+     line.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.  Without
 a CUDA device, or without the repository around it, it fails.
@@ -97,6 +111,7 @@ import subprocess
 import sys
 import time
 import types
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -243,7 +258,7 @@ def main() -> None:
     from repro_torch.core import SolveConfig, improved_ising, solve_es
     from repro_torch.core import metrics, pipeline
     from repro_torch.core.formulation import IsingProblem
-    from repro_torch.core.rounding import quantize_ising
+    from repro_torch.core.rounding import quantize_ising, quantize_ising_many
     from repro_torch.data.synthetic import synthetic_document
     from repro_torch.configs.base import get_config
     from repro_torch.data.tokenizer import ByteTokenizer
@@ -401,6 +416,89 @@ def main() -> None:
             fail("padding slots of the fused best are not +inf")
         print(f"kernels vs plain at reads={reads} lanes={op.n_pad}: ok (best read {i}, E={float(e_k[i])}, "
               f"{int((e_k[:reads] == e_k[i]).sum())} reads tie at the minimum)")
+    torch.cuda.synchronize()
+
+    # The anneal loop's cases: live extents 4 to 128 on 128 lanes, an
+    # all-zero row and column inside n, a non-symmetric J, 64 and 1024 reads,
+    # and the global-J path at N = 256 and 1024.  Each against its plain
+    # version at 50 steps within TRAJ_TOL; then, on the card, readout spins ==
+    # sign(cos(trajectory phases)), exact energies and fused == readout + first
+    # argmin, bit for bit, at 400 steps (100 at N = 1024).
+    def int_instance(seed: int, n: int, symmetric: bool = True, zero=None) -> IsingProblem:
+        """Chip-range integer instance whose live extent is exactly n."""
+        g = np.random.default_rng(seed)
+        j = g.integers(-14, 15, (n, n)).astype(np.float32)
+        if symmetric:
+            j = np.triu(j, 1)
+            j = j + j.T
+        j[0, n - 1] = j[n - 1, 0] = 5.0
+        hv = g.integers(-14, 15, n).astype(np.float32)
+        if zero is not None:
+            j[zero, :] = j[:, zero] = 0.0
+        return IsingProblem(h=torch.tensor(hv, device=dev), j=torch.tensor(j, device=dev))
+
+    loop_cases = [(f"extent {e}", int_instance(e, e), READS) for e in (4, 20, 33, 100, 127, 128)]
+    loop_cases += [("zero row and column 17 of 40", int_instance(40, 40, zero=17), READS),
+                   ("non-symmetric J, 60 spins", int_instance(60, 60, symmetric=False), READS),
+                   ("extent 20, R 64", int_instance(20, 20), 64),
+                   ("extent 20, R 1024", int_instance(20, 20), 1024),
+                   ("N 256 (global J)", int_instance(256, 256), READS),
+                   ("N 1024 (global J)", int_instance(1024, 1024), READS)]
+    for label, q, reads in loop_cases:
+        op, mask, rd = operands(reads, k_solve, q.h, q.j)
+        traj_args = (op.j_scaled, op.h_scaled, op.phi0)
+        read_args = (op.j_scaled, op.h_scaled, op.j_orig, op.h_orig, op.phi0)
+        short = dict(steps=50, dt=0.35, ks_max=1.2)
+        full = dict(steps=100 if op.n_pad == 1024 else STEPS, dt=0.35, ks_max=1.2)
+        got = cd.cobi_trajectory_cuda(*traj_args, **short)
+        want = cd.cobi_trajectory_plain(*traj_args, **short)
+        err = (got - want).abs()
+        if not bool((err <= TRAJ_TOL + TRAJ_TOL * want.abs()).all()):
+            fail(f"cobi_trajectory vs plain ({label}, R={reads}, {op.n_pad} lanes): "
+                 f"max err {float(err.max())}")
+        errs["cobi_trajectory"] = max(errs["cobi_trajectory"], float(err.max()))
+        phi = cd.cobi_trajectory_cuda(*traj_args, **full)
+        s_k, e_k = cd.cobi_readout_cuda(*read_args, **full)
+        be_k, bs_k = cd.cobi_fused_best_cuda(*read_args[:4], mask, rd, op.phi0, **full)
+        i = int(torch.argmin(e_k[:reads]))
+        if not (torch.equal(s_k, kref.sign_spins(phi))
+                and torch.equal(e_k, kref.ref_ising_energy(s_k, op.h_orig[0], op.j_orig))
+                and float(be_k[0]) == float(e_k[i]) and torch.equal(bs_k[0], s_k[i])
+                and bool(torch.isinf(be_k[1:]).all())):
+            fail(f"anneal case {label}: readout != sign(cos(trajectory)), inexact energies, or "
+                 f"fused != readout + first argmin")
+        print(f"anneal case {label}: R={reads} lanes={op.n_pad} max err vs plain "
+              f"{float(err.max()):.3e}; readout, energies, fused best bitwise ok ({full['steps']} steps)")
+
+    # A packed bin with jobs at lane offsets 3, 21 and 77: each job's packed
+    # anneal equals its solo anneal, phases and fused winner bit for bit.
+    jobs = {3: int_instance(303, 15), 21: int_instance(321, 40), 77: int_instance(377, 30)}
+    z = lambda *shape: torch.zeros(shape, device=dev)
+    pk = {"j": z(1, 128, 128), "h": z(1, 1, 128), "ju": z(1, 128, 128), "hu": z(1, 1, 128),
+          "mask": z(1, 128, ops.SLOT_PAD), "reads": z(1, 1, ops.SLOT_PAD), "phi0": z(1, READS, 128)}
+    solo_ops = {}
+    for si, (off, q) in enumerate(jobs.items()):
+        op, mask, rd = operands(READS, prng.split(prng.key(off))[0], q.h, q.j)
+        lanes, nj = slice(off, off + q.n), q.n
+        pk["j"][0, lanes, lanes], pk["ju"][0, lanes, lanes] = op.j_scaled[:nj, :nj], op.j_orig[:nj, :nj]
+        pk["h"][0, 0, lanes], pk["hu"][0, 0, lanes] = op.h_scaled[0, :nj], op.h_orig[0, :nj]
+        pk["phi0"][0, :, lanes] = op.phi0[:, :nj]
+        pk["mask"][0, lanes, si], pk["reads"][0, 0, si] = 1.0, float(READS)
+        solo_ops[off] = (si, op, mask, rd)
+    full = dict(steps=STEPS, dt=0.35, ks_max=1.2)
+    pk_phi = cd.cobi_trajectory_batched_cuda(pk["j"], pk["h"], pk["phi0"], **full)
+    pk_e, pk_s = cd.cobi_fused_best_batched_cuda(
+        *(pk[k] for k in ("j", "h", "ju", "hu", "mask", "reads", "phi0")), **full)
+    for off, (si, op, mask, rd) in solo_ops.items():
+        nj, lanes = jobs[off].n, slice(off, off + jobs[off].n)
+        phi = cd.cobi_trajectory_cuda(op.j_scaled, op.h_scaled, op.phi0, **full)
+        se, ss = cd.cobi_fused_best_cuda(op.j_scaled, op.h_scaled, op.j_orig, op.h_orig, mask, rd,
+                                         op.phi0, **full)
+        if not (torch.equal(phi[:, :nj], pk_phi[0, :, lanes]) and float(se[0]) == float(pk_e[0, si])
+                and torch.equal(ss[0, :nj], pk_s[0, si, lanes])):
+            fail(f"packed job at lane offset {off} ({nj} spins) != its solo anneal")
+    print(f"packed bin (jobs at lane offsets {sorted(jobs)}): phases and fused winners == solo, "
+          f"bitwise ({STEPS} steps)")
     torch.cuda.synchronize()
 
     # ------------------------------------------------------------ 3b. batched kernels
@@ -783,17 +881,38 @@ def main() -> None:
     print(f"farm paths: all {n_docs} documents equal their inline solves bitwise")
 
     # The submit phase of the lockstep drive, split: the formulation per
-    # document, the stochastic roundings per iteration (on the card), and
-    # the farm's submit (host copy of each instance, programmability check).
+    # document, the stochastic roundings (on the card, one batched call per
+    # document as pipeline._submit_iterations makes it, and for the record
+    # one call per key), and the farm's submit (host copy of each instance,
+    # programmability check).  One batched call syncs the host at most once.
     t = time.perf_counter()
     forms = [improved_ising(doc) for doc in farm_docs]
     torch.cuda.synchronize()
     t_form = time.perf_counter() - t
+    doc_keys = [pipeline._iteration_keys(k, FARM_ITERATIONS) for k in farm_keys]
     t = time.perf_counter()
-    rounded = [(quantize_ising(fp, key=kq).ising, ks) for fp, k in zip(forms, farm_keys)
-               for kq, ks in pipeline._iteration_keys(k, FARM_ITERATIONS)]
+    rounded = []
+    for fp, pairs in zip(forms, doc_keys):
+        qs = quantize_ising_many(fp, [kq for kq, _ in pairs], farm_cfg.rounding,
+                                 int_range=farm_cfg.int_range)
+        rounded += [(q.ising, ks) for q, (_, ks) in zip(qs, pairs)]
     torch.cuda.synchronize()
     t_round = time.perf_counter() - t
+    t = time.perf_counter()
+    per_key = [quantize_ising(fp, farm_cfg.rounding, int_range=farm_cfg.int_range, key=kq).ising
+               for fp, pairs in zip(forms, doc_keys) for kq, _ in pairs]
+    torch.cuda.synchronize()
+    t_per_key = time.perf_counter() - t
+    if not all(torch.equal(a.h, b.h) and torch.equal(a.j, b.j)
+               for (a, _), b in zip(rounded, per_key)):
+        fail("quantize_ising_many != one quantize_ising per key")
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        quantize_ising_many(forms[0], [kq for kq, _ in doc_keys[0]], farm_cfg.rounding,
+                            int_range=farm_cfg.int_range)
+    torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
     probe = CobiFarm(4)
     t = time.perf_counter()
     for q, ks in rounded:
@@ -801,7 +920,10 @@ def main() -> None:
     t_submit = time.perf_counter() - t
     probe.close(drain=False)
     print(f"farm submit split (s): formulation {t_form:.4f} ({n_docs} documents) rounding "
-          f"{t_round:.4f} ({len(rounded)} instances) submit {t_submit:.4f}")
+          f"{t_round:.4f} ({len(rounded)} instances in {n_docs} batched calls; one call per key "
+          f"{t_per_key:.4f}) submit {t_submit:.4f}; host syncs of one batched call: {syncs}")
+    if syncs > 1:
+        fail(f"quantize_ising_many synced the host {syncs} times in one call (at most once)")
 
     farm = CobiFarm(4)
     reset_counts()
@@ -1173,24 +1295,37 @@ def main() -> None:
                                           op.phi0, **full),
             "src/repro/kernels/cobi_dynamics.py:419", "cobi_dynamics.cu"),
     }
-    # bound_ms counts the operands as the kernels take them (R=8 rows, 128
-    # padded lanes, 8 padded slots); bound_unpadded_ms counts only the
-    # instance's own n spins, its reads and its one slot.
+    # Two bounds: at the operands as the kernels take them (R=8 rows, 128
+    # padded lanes, 8 padded slots), and at the instance's own n spins, its
+    # reads and its one slot; every row carries both.  bound_ms is the work
+    # this run's data needs: the COBI kernels run repro::anneal, whose loop
+    # skips the lanes past the live extent, so theirs is the latter; the
+    # energy kernels compute on every padded lane, so theirs is the former.
     n_real = problem.n
+
+    def bounds(name, padded, own) -> dict:
+        """The row's bound keys from its (ms, by) at the padded shapes and at
+        the instances' own spins."""
+        (p_ms, p_by), (u_ms, u_by) = padded, own
+        skips_padding = name.startswith("cobi_")
+        return {"bound_ms": u_ms if skips_padding else p_ms,
+                "bound_by": u_by if skips_padding else p_by,
+                "bound_padded_ms": p_ms, "bound_padded_by": p_by,
+                "bound_unpadded_ms": u_ms, "bound_unpadded_by": u_by}
+
     reset_counts()  # timing launches are not the main path's
     rows = []
     for name, (kern, plain, replaces, source) in jobs.items():
         ms = cuda_ms(kern, reps=200 if name == "ising_energy" else 20)
         plain_ms = cuda_ms(plain, reps=50 if name == "ising_energy" else 3, warmup=1)
-        b_ms, by = bound_ms(*work(name, op.r_pad, op.n_pad, mask.shape[1]))
-        u_ms, u_by = bound_ms(*work(name, READS, n_real, 1))
+        (b_ms, by), (u_ms, u_by) = (bound_ms(*work(name, op.r_pad, op.n_pad, mask.shape[1])),
+                                    bound_ms(*work(name, READS, n_real, 1)))
         rows.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{source}",
             "replaces": replaces, "launches": launches[name],
-            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": by, "library_ms": None,
-            "bound_unpadded_ms": u_ms, "bound_unpadded_by": u_by,
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            **bounds(name, (b_ms, by), (u_ms, u_by)),
         })
         print(f"time {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {b_ms:.6f} ms ({by}) at R={op.r_pad} N={op.n_pad}, "
@@ -1223,15 +1358,14 @@ def main() -> None:
         energy = name == "ising_energy_batched"
         ms = cuda_ms(kern, reps=200 if energy else 10)
         plain_ms = cuda_ms(plain, reps=20 if energy else 2, warmup=1)
-        b_ms, by = bound_ms(*batched_work(name, shapes))
-        u_ms, u_by = bound_ms(*batched_work(name, job_shapes))
+        (b_ms, by), (u_ms, u_by) = (bound_ms(*batched_work(name, shapes)),
+                                    bound_ms(*batched_work(name, job_shapes)))
         rows.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{source}",
             "replaces": replaces, "launches": launches[name],
-            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": by, "library_ms": None,
-            "bound_unpadded_ms": u_ms, "bound_unpadded_by": u_by,
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            **bounds(name, (b_ms, by), (u_ms, u_by)),
         })
         print(f"time {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {b_ms:.6f} ms ({by}) at {len(shapes)} x (R={READS}, N=128, S={shapes[0][2]}), "
@@ -1260,9 +1394,8 @@ def main() -> None:
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/mcmc_dynamics.cu",
             "replaces": replaces, "launches": launches[name],
-            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": by, "library_ms": None,
-            "bound_unpadded_ms": u_ms, "bound_unpadded_by": u_by,
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            **bounds(name, (b_ms, by), (u_ms, u_by)),
         })
         print(f"time {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {b_ms:.6f} ms ({by}) at B=1 R={READS} N=128 128 proposals a sweep, "
@@ -1274,7 +1407,8 @@ def main() -> None:
     # (no public switch reaches it there), its plain version, and one
     # PyTorch call of the same function as a yardstick (the port never
     # calls it).  The bound counts 4 B H D flops per unmasked (q, k) pair,
-    # S (S + 1) / 2 pairs, on the bf16 tensor cores, and q, k, v, o once each.
+    # S (S + 1) / 2 pairs, on the bf16 tensor cores, and q, k, v, o once each;
+    # the buckets have no padded lanes, so padded and unpadded bounds agree.
     sdpa = torch.nn.functional.scaled_dot_product_attention
     fa_lib = _build.library("flash_attention")
     for b, s_len in ((8, 2048), (4, 1024)):
@@ -1300,7 +1434,8 @@ def main() -> None:
                 "replaces": "src/repro/kernels/flash_attention.py:75",
                 "launches": launches["flash_attention"],
                 "max_abs_err": errs["flash_attention"], "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms, "ms_fma": fma_ms,
+                "library_ms": lib_ms, "ms_fma": fma_ms,
+                **bounds("flash_attention", (b_ms, by), (b_ms, by)),
             })
         print(f"time flash_attention at B={b} S={s_len} H=12 D=64 bf16 causal: kernel (wgmma) "
               f"{ms:.4f} ms through the wrapper ({flops / ms / 1e9:.1f} TFLOP/s), {entry_ms:.4f} ms "
@@ -1324,7 +1459,9 @@ def main() -> None:
     ):
         ms = cuda_ms(fn, reps=10)
         b_ms, by = bound_ms(*work(name, op_big.r_pad, op_big.n_pad, mask_big.shape[1]))
-        print(f"time {name} at reads=1024: kernel {ms:.4f} ms, bound {b_ms:.6f} ms ({by})")
+        u_ms, u_by = bound_ms(*work(name, 1024, n_real, 1))
+        print(f"time {name} at reads=1024: kernel {ms:.4f} ms, bound {b_ms:.6f} ms ({by}) at "
+              f"N={op_big.n_pad}, {u_ms:.6f} ms ({u_by}) at N={n_real}")
     mop_big = mcmc_operands([inst], [k_solve], 1024, 1024)
     ms = cuda_ms(lambda: md.mcmc_sweep_batched(*mop_big, **{**mkw, "replica_block": 256}), reps=10)
     b_ms, by = bound_ms(*mcmc_work("mcmc_sweep_batched", 1024, 128, 128, MCMC_SWEEPS))

@@ -10,7 +10,9 @@ maps max(|h|, |J|) onto the integer range, then one of three schemes rounds:
 J is rounded on the strict upper triangle and mirrored, as on the chip.  The
 uniforms are drawn with :mod:`repro_torch.prng` at the reference's shapes
 (``h.shape`` from the first half of ``split(key)``, ``(n, n)`` from the
-second), so the same key rounds to the same integers bit for bit.
+second), so the same key rounds to the same integers bit for bit.  K
+roundings of one instance are one batch, as the reference's vmapped launch
+(:func:`quantize_ising_many`); :func:`quantize_ising` is its K = 1 case.
 """
 
 from __future__ import annotations
@@ -42,7 +44,9 @@ class QuantizedIsing:
     scale: float  # fp_coeff ~= int_coeff / scale
 
 
-def _round(v: torch.Tensor, scheme: str, key: Optional[torch.Tensor]) -> torch.Tensor:
+def _round(v: torch.Tensor, scheme: str, u: Optional[torch.Tensor]) -> torch.Tensor:
+    """Round ``v`` with the uniforms ``u`` (K, *v.shape), one row per
+    rounding; ``deterministic`` takes none and returns v's shape."""
     if scheme == "deterministic":
         return torch.round(v)
     lo = torch.floor(v)
@@ -52,22 +56,34 @@ def _round(v: torch.Tensor, scheme: str, key: Optional[torch.Tensor]) -> torch.T
         p_up = torch.where(frac > 0.0, 0.5, 0.0)
     else:
         p_up = frac
-    up = prng.uniform(key, v.shape, device=v.device) < p_up
-    return lo + up.to(v.dtype)
+    return lo + (u < p_up).to(v.dtype)
 
 
-def _quantize_arrays(h, j, key, *, scheme: str, int_range: int):
-    n = h.shape[-1]
+def _quantize_many(ising: IsingProblem, keys: list, scheme: str,
+                   int_range: int) -> list[QuantizedIsing]:
+    """The reference's vmapped ``_quantize_arrays`` over K keys as one
+    batch: the scale once, two draws for all K, then round, clamp and
+    mirror the stacked (K, n) and (K, n, n) operands."""
+    h, j = ising.h.to(torch.float32), ising.j.to(torch.float32)
+    dev, n, kk = h.device, h.shape[-1], len(keys)
     m = torch.maximum(h.abs().max(), j.abs().max())
     # A true float32 division: torch evaluates ``int / tensor`` as a
     # reciprocal times the int, which can round the scale differently.
-    scale = torch.tensor(float(int_range), device=h.device) / torch.clamp(m, min=1e-12)
-    kh, kj = prng.split(key) if scheme != "deterministic" else (None, None)
-    h_q = torch.clamp(_round(h * scale, scheme, kh), -int_range, int_range)
-    upper = torch.triu(torch.ones((n, n), dtype=torch.bool, device=h.device), 1)
-    j_q = torch.where(upper, _round(j * scale, scheme, kj), 0.0)
-    j_q = torch.clamp(j_q + j_q.T, -int_range, int_range)
-    return h_q, j_q, scale
+    scale = torch.full((), float(int_range), dtype=torch.float32, device=dev) / torch.clamp(
+        m, min=1e-12)
+    uh = uj = None
+    if scheme != "deterministic":
+        halves = prng.split_host(keys)  # (K, 2, 2): each key's (kh, kj)
+        uh = prng.uniform_many(halves[:, 0], (n,), device=dev)
+        uj = prng.uniform_many(halves[:, 1], (n, n), device=dev)
+    h_q = torch.clamp(_round(h * scale, scheme, uh), -int_range, int_range)
+    upper = torch.triu(torch.ones((n, n), dtype=torch.bool, device=dev), 1)
+    j_q = torch.where(upper, _round(j * scale, scheme, uj), 0.0)
+    j_q = torch.clamp(j_q + j_q.transpose(-1, -2), -int_range, int_range)
+    if scheme == "deterministic":  # one rounding, K copies
+        h_q, j_q = h_q.expand(kk, n).contiguous(), j_q.expand(kk, n, n).contiguous()
+    s = float(scale)  # the call's one host sync
+    return [QuantizedIsing(ising=IsingProblem(h=h_q[i], j=j_q[i]), scale=s) for i in range(kk)]
 
 
 def _check(scheme: str, bits: Optional[int], int_range: int) -> int:
@@ -92,11 +108,7 @@ def quantize_ising(
     int_range = _check(scheme, bits, int_range)
     if key is None and scheme != "deterministic":
         raise ValueError(f"scheme {scheme!r} needs a PRNG key")
-    h_q, j_q, scale = _quantize_arrays(
-        ising.h.to(torch.float32), ising.j.to(torch.float32), key,
-        scheme=scheme, int_range=int_range,
-    )
-    return QuantizedIsing(ising=IsingProblem(h=h_q, j=j_q), scale=float(scale))
+    return _quantize_many(ising, [key], scheme, int_range)[0]
 
 
 def quantize_ising_many(
@@ -107,9 +119,15 @@ def quantize_ising_many(
     int_range: int = COBI_RANGE,
     bits: Optional[int] = None,
 ) -> list[QuantizedIsing]:
-    """K independent roundings of ONE instance, one per key: identical to
-    ``[quantize_ising(ising, scheme, key=k) for k in keys]``."""
-    return [
-        quantize_ising(ising, scheme, int_range=int_range, bits=bits, key=k)
-        for k in keys
-    ]
+    """K independent roundings of ONE instance, one per key, in one batch:
+    identical to ``[quantize_ising(ising, scheme, key=k) for k in keys]``.
+
+    As the reference's vmapped launch: the keys split on the host in one
+    numpy pass, h's and J's uniforms drawn for all K keys in one
+    ``uniform_many`` each, and one host sync (the scale).  Each result's
+    ``ising.h`` / ``ising.j`` is a view of a (K, n) / (K, n, n) stack on the
+    device of ``ising.h``.
+    """
+    int_range = _check(scheme, bits, int_range)
+    keys = list(keys)
+    return _quantize_many(ising, keys, scheme, int_range) if keys else []

@@ -45,6 +45,7 @@ _ARGTYPES = {
         "cobi_trajectory": [P, P, P, P, I, I, I, I, F, F, P],
         "cobi_readout": [P, P, P, P, P, P, P, I, I, I, I, F, F, P],
         "cobi_fused_best": [P] * 11 + [I, I, I, I, I, F, F, P],
+        "cobi_anneal_rows": [],
     },
     "mcmc_dynamics": {
         "mcmc_sweep": [P] * 8 + [I] * 7 + [P],

@@ -11,7 +11,8 @@ Ports of ``repro.kernels.cobi_dynamics``:
   * :func:`cobi_trajectory_batched_cuda` -- ``cobi_trajectory_batched_pallas``
     and :func:`cobi_fused_best_batched_cuda` --
     ``cobi_fused_best_batched_pallas``: the same over a stack of B (packed)
-    instances, one launch with grid (R / 8, B).  The chip farm's drains.
+    instances, one launch with grid (R / AR, B), AR replica rows a block
+    (``cobi_anneal_rows``).  The chip farm's drains.
 
 All of them share one Euler loop (``csrc/cobi_anneal.cuh``), so for the same
 inputs their phases are bitwise identical and the fused best equals the
@@ -184,12 +185,13 @@ def _fused_best(j_scaled, h_scaled, j_orig, h_orig, mask, reads, phi0,
     s_slots = _check_fused(j_orig, h_orig, mask, reads, b, n)
     check_cuda_args(j_scaled, h_scaled, j_orig, h_orig, mask, reads, phi0)
     dev = phi0.device
-    nblk = r // BR
+    lib = _build.library("cobi_dynamics")
+    nblk = r // lib.cobi_anneal_rows()  # scratch entries: one per anneal block
     blk_e = torch.empty((b, nblk, s_slots), dtype=torch.float32, device=dev)
     blk_rows = torch.empty((b, nblk, s_slots, n), dtype=torch.float32, device=dev)
     e_out = torch.empty((b, s_slots), dtype=torch.float32, device=dev)
     s_out = torch.empty((b, s_slots, n), dtype=torch.float32, device=dev)
-    err = _build.library("cobi_dynamics").cobi_fused_best(
+    err = lib.cobi_fused_best(
         j_scaled.data_ptr(), h_scaled.data_ptr(), j_orig.data_ptr(), h_orig.data_ptr(),
         mask.data_ptr(), reads.data_ptr(), phi0.data_ptr(),
         blk_e.data_ptr(), blk_rows.data_ptr(), e_out.data_ptr(), s_out.data_ptr(),

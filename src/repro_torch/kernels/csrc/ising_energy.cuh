@@ -15,22 +15,25 @@ namespace repro {
 
 constexpr int BR = 8;  // replica rows per thread block
 
-// Per-lane energy densities of BR rows.  One thread per lane i (blockDim.x ==
-// n); `sp` holds the rows' spins in shared memory (BR x n, row-major); `j` is
-// the (n x n) scoring matrix in global memory, read coalesced along i.
+// Per-lane energy densities of ROWS rows (BR in the energy kernel, an
+// anneal block's rows in the COBI epilogues).  One thread per lane i; `sp`
+// holds the rows' spins in shared memory (ROWS x n, row-major); `j` is the
+// (n x n) scoring matrix in global memory, read coalesced along i.  A row's
+// density does not depend on how many rows share the call.
+template <int ROWS>
 __device__ __forceinline__ void lane_energies(
     const float* __restrict__ sp, const float* __restrict__ j, float h_i,
-    int n, int i, float (&e)[BR]) {
-  float acc[BR];
+    int n, int i, float (&e)[ROWS]) {
+  float acc[ROWS];
 #pragma unroll
-  for (int r = 0; r < BR; ++r) acc[r] = 0.0f;
+  for (int r = 0; r < ROWS; ++r) acc[r] = 0.0f;
   for (int k = 0; k < n; k += 4) {
     const float j0 = j[(k + 0) * n + i];
     const float j1 = j[(k + 1) * n + i];
     const float j2 = j[(k + 2) * n + i];
     const float j3 = j[(k + 3) * n + i];
 #pragma unroll
-    for (int r = 0; r < BR; ++r) {
+    for (int r = 0; r < ROWS; ++r) {
       const float4 v = *reinterpret_cast<const float4*>(sp + r * n + k);
       acc[r] = fmaf(v.x, j0, acc[r]);
       acc[r] = fmaf(v.y, j1, acc[r]);
@@ -39,7 +42,7 @@ __device__ __forceinline__ void lane_energies(
     }
   }
 #pragma unroll
-  for (int r = 0; r < BR; ++r) {
+  for (int r = 0; r < ROWS; ++r) {
     const float s = sp[r * n + i];
     e[r] = __fadd_rn(__fmul_rn(s, acc[r]), __fmul_rn(h_i, s));
   }

@@ -7,7 +7,8 @@ the pipeline makes -- ``key``, ``split``, ``bits`` and ``uniform`` -- so that
 the port, handed the same key words, rounds the same integer instances and
 starts its anneals from the same phases, bit for bit.  :func:`uniform_many`
 is ``jax.vmap(jax.random.uniform)`` over a stack of keys, as the chip farm
-draws each job's phases.
+draws each job's phases and the rounding draws K roundings' uniforms;
+:func:`split_host` is ``split`` of K keys at once, on the host.
 
 A key is a ``(2,)`` int64 tensor on the CPU holding the two uint32 words of
 ``jax.random.key_data(key)``.  Keys are threaded explicitly through every
@@ -87,10 +88,21 @@ def bits_host(k: torch.Tensor, size: int) -> np.ndarray:
     return b1 ^ b2
 
 
+def split_host(keys: Sequence[torch.Tensor], num: int = 2) -> np.ndarray:
+    """``split(k, num)`` of every key at once, on the host: (K, num, 2)
+    int64 numpy key words, row k split from ``keys[k]`` alone.  One numpy
+    threefry pass over (K, num) counters, each key's words riding as a
+    column, so splitting K keys costs no torch op and no device round trip."""
+    words = np.stack([np.asarray(k, dtype=np.int64) for k in keys])  # (K, 2)
+    lo = np.arange(num, dtype=np.int64)[None]
+    b1, b2 = threefry2x32(words[:, :1], words[:, 1:], np.zeros_like(lo), lo)
+    return np.stack([b1, b2], axis=-1)
+
+
 def split(k: torch.Tensor, num: int = 2) -> torch.Tensor:
-    """``jax.random.split(key, num)``: (num, 2) int64 key words."""
-    b1, b2 = _hash_iota(k, (num,), "cpu")
-    return torch.stack([b1, b2], dim=1)
+    """``jax.random.split(key, num)``: (num, 2) int64 key words, hashed on
+    the host."""
+    return torch.from_numpy(split_host([k], num)[0])
 
 
 def bits(k: torch.Tensor, shape: Sequence[int], *, device=None) -> torch.Tensor:
@@ -120,8 +132,9 @@ def uniform(
 
 def _to_uniform(b: torch.Tensor, minval: float, maxval: float) -> torch.Tensor:
     f = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=b.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=b.device)
+    # Filled on the device: a host scalar copied there would sync the host.
+    lo = torch.full((), minval, dtype=torch.float32, device=b.device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=b.device)
     return torch.maximum(lo, f * (hi - lo) + lo)
 
 
@@ -138,7 +151,12 @@ def uniform_many(
     k alone.  One threefry hash over (K, size): each key's words ride as
     (K, 1) columns."""
     device = resolve_device(device)
-    keys = torch.as_tensor(keys, dtype=torch.int64).to(device)
+    keys = torch.as_tensor(keys, dtype=torch.int64)
+    if device.type == "cuda" and keys.device.type == "cpu":
+        # From pinned memory without blocking: a pageable copy syncs the host.
+        keys = keys.pin_memory().to(device, non_blocking=True)
+    else:
+        keys = keys.to(device)
     if keys.ndim != 2 or keys.shape[1] != 2:
         raise ValueError(f"keys are (K, 2) words, got shape {tuple(keys.shape)}")
     lo = _iota(shape, device)[None]

@@ -138,6 +138,68 @@ def test_quantize_ising_many_identical_and_bits():
         tround.quantize_ising(ti, "stochastic")  # needs a key
 
 
+@pytest.mark.parametrize("scheme", ["deterministic", "stochastic_5050", "stochastic"])
+@pytest.mark.parametrize("n", [7, 33, 59])
+@pytest.mark.parametrize("rng_kw", [dict(int_range=14), dict(int_range=7), dict(bits=4)],
+                         ids=["range14", "range7", "bits4"])
+def test_quantize_ising_many_batched_identical(scheme, n, rng_kw):
+    """The batched rounding equals the reference's vmapped one bit for bit,
+    for K = 1, 3 and 10 keys; the scale too."""
+    jp, tp = _problems(n)
+    ji, ti = jform.improved_ising(jp), tform.improved_ising(tp)
+    for kk in (1, 3, 10):
+        jkeys = jax.random.split(jax.random.key(n + kk), kk)
+        tkeys = [carry_across("key", np.asarray(jax.random.key_data(k))) for k in jkeys]
+        want = jround.quantize_ising_many(ji, jkeys, scheme, **rng_kw)
+        got = tround.quantize_ising_many(ti, tkeys, scheme, **rng_kw)
+        assert len(got) == len(want) == kk
+        for w, g in zip(want, got):
+            np.testing.assert_array_equal(g.ising.h.numpy(), np.asarray(w.ising.h))
+            np.testing.assert_array_equal(g.ising.j.numpy(), np.asarray(w.ising.j))
+            assert g.scale == w.scale
+
+
+@pytest.mark.parametrize("scheme,draws", [("stochastic", 2), ("stochastic_5050", 2),
+                                          ("deterministic", 0)])
+def test_quantize_ising_many_draws_once_per_batch(monkeypatch, scheme, draws):
+    """One ``uniform_many`` pair per call whatever K, no per-key
+    ``quantize_ising`` and no per-key draw."""
+    _, tp = _problems(18)
+    ti = tform.improved_ising(tp)
+    calls = {"uniform_many": 0, "uniform": 0, "quantize_ising": 0}
+
+    def counting(name, fn):
+        def wrapped(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    monkeypatch.setattr(tround.prng, "uniform_many",
+                        counting("uniform_many", tround.prng.uniform_many))
+    monkeypatch.setattr(tround.prng, "uniform", counting("uniform", tround.prng.uniform))
+    monkeypatch.setattr(tround, "quantize_ising",
+                        counting("quantize_ising", tround.quantize_ising))
+    for kk in (1, 4, 12):
+        calls.update(dict.fromkeys(calls, 0))
+        keys = list(tpipe.prng.split(tpipe.prng.key(kk), kk))
+        out = tround.quantize_ising_many(ti, keys, scheme)
+        assert len(out) == kk
+        assert calls == {"uniform_many": draws, "uniform": 0, "quantize_ising": 0}
+    # The K results are views of one stack.
+    if scheme != "deterministic":
+        assert out[0].ising.j.untyped_storage().data_ptr() == \
+            out[-1].ising.j.untyped_storage().data_ptr()
+
+
+def test_split_host_matches_jax_split():
+    """K keys split at once on the host == jax.random.split of each."""
+    jkeys = jax.random.split(jax.random.key(9), 6)
+    tkeys = [carry_across("key", np.asarray(jax.random.key_data(k))) for k in jkeys]
+    got = tpipe.prng.split_host(tkeys, 3)
+    for jk, g in zip(jkeys, got):
+        np.testing.assert_array_equal(g, np.asarray(jax.random.key_data(jax.random.split(jk, 3))))
+
+
 # ------------------------------------------------------------ pipeline bits
 
 

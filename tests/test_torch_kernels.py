@@ -4,6 +4,10 @@ reference proves of itself, held inside the port.
 
 Tolerances: phases rtol = atol = 2e-4 at 50 steps (the reference's own
 kernel-vs-oracle bound); energies of +-1 spins on integer couplings exact.
+The CUDA kernels run only on the card: the ``cuda`` tests hold the anneal
+loop against its plain version there and skip elsewhere; on the card, with
+no JAX installed, run them alone:
+``PYTHONPATH=src python3 -m pytest -q -m cuda tests/test_torch_kernels.py``.
 """
 
 import numpy as np
@@ -11,13 +15,17 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-import jax
-import jax.numpy as jnp
+try:
+    import jax
+    import jax.numpy as jnp
 
-from repro.kernels import cobi_dynamics as jcobi
-from repro.kernels import ops as jops
-from repro.kernels import ref as jref
-from repro.kernels.ising_energy import ising_energy_pallas
+    from repro.kernels import cobi_dynamics as jcobi
+    from repro.kernels import ops as jops
+    from repro.kernels import ref as jref
+    from repro.kernels.ising_energy import ising_energy_pallas
+except ModuleNotFoundError:  # a machine with a card but no JAX runs only the cuda tests
+    jax = jnp = jcobi = jops = jref = ising_energy_pallas = None
+from repro_torch import prng as tprng
 from repro_torch.kernels import cobi_dynamics as tcobi
 from repro_torch.kernels import ising_energy as tenergy
 from repro_torch.kernels import ops as tops
@@ -67,6 +75,92 @@ def test_cobi_trajectory_matches_pallas(n, r):
     )
     got = tcobi.cobi_trajectory_cuda(*_t(jp, hp, phi0), steps=50, dt=0.3, ks_max=1.0)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4, atol=2e-4)
+
+
+def _loop_instance(seed, n, symmetric=True, zero=None):
+    """Chip-range integer instance whose live extent (1 + the largest index
+    of a nonzero coupling) is exactly n; optionally non-symmetric, or with
+    row and column ``zero`` all zero inside it."""
+    rng = np.random.default_rng(seed)
+    j = rng.integers(-14, 15, (n, n)).astype(np.float32)
+    if symmetric:
+        j = np.triu(j, 1)
+        j = j + j.T
+    j[0, n - 1] = j[n - 1, 0] = 5.0
+    if zero is not None:
+        j[zero, :] = j[:, zero] = 0.0
+    return rng.integers(-14, 15, n).astype(np.float32), j
+
+
+LOOP_CASES = {  # the anneal loop's live-extent cases, on 128 lanes
+    "extent4": dict(n=4), "extent33": dict(n=33), "extent127": dict(n=127),
+    "zero_row_col": dict(n=40, zero=17), "non_symmetric": dict(n=60, symmetric=False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LOOP_CASES))
+def test_cobi_trajectory_loop_cases_match_pallas(case):
+    """The plain trajectory against the Pallas kernel on the instances the
+    CUDA loop's live extent cuts differently: tiny and near-full extents, a
+    zero row and column inside n, a non-symmetric J."""
+    h, j = _loop_instance(len(case), **LOOP_CASES[case])
+    scale = float(jops.dynamics_scale(jnp.asarray(h), jnp.asarray(j)))
+    jp = _pad(j / np.float32(scale), (128, 128))
+    hp = _pad((h / np.float32(scale))[None], (1, 128))
+    phi0 = np.asarray(jax.random.uniform(jax.random.key(7), (8, 128), minval=0.0,
+                                         maxval=2 * jnp.pi))
+    want = jcobi.cobi_trajectory_pallas(
+        jnp.asarray(jp), jnp.asarray(hp), jnp.asarray(phi0), steps=50, dt=0.35,
+        ks_max=1.2, replica_block=8, interpret=True,
+    )
+    got = tcobi.cobi_trajectory_cuda(*_t(jp, hp, phi0), steps=50, dt=0.35, ks_max=1.2)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4, atol=2e-4)
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs CUDA: torch.cuda.is_available() is False (no GPU or a CPU-only torch)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(LOOP_CASES))
+def test_anneal_loop_matches_plain_on_card(card, case):
+    """On the card: the trajectory kernel within 2e-4 of its plain version
+    at 50 steps, and fused best == readout + first argmin bit for bit."""
+    h, j = _loop_instance(len(case), **LOOP_CASES[case])
+    op = tops.anneal_operands(*(x.to(card) for x in _t(h, j)), tprng.key(3), replicas=8)
+    kw = dict(steps=50, dt=0.35, ks_max=1.2)
+    got = tcobi.cobi_trajectory_cuda(op.j_scaled, op.h_scaled, op.phi0, **kw)
+    want = tcobi.cobi_trajectory_plain(op.j_scaled, op.h_scaled, op.phi0, **kw)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    args = (op.j_scaled, op.h_scaled, op.j_orig, op.h_orig)
+    spins, energies = tcobi.cobi_readout_cuda(*args, op.phi0, **kw)
+    mask, reads = tops.solo_slot(op.n_pad, 8, card)
+    best_e, best_s = tcobi.cobi_fused_best_cuda(*args, mask, reads, op.phi0, **kw)
+    i = int(torch.argmin(energies))
+    assert float(best_e[0]) == float(energies[i]) and torch.equal(best_s[0], spins[i])
+
+
+@pytest.mark.cuda
+def test_packed_bin_equals_solo_on_card(card):
+    """On the card: jobs at lane offsets 3, 21 and 77 of one bin anneal to
+    their solo phases bit for bit (400 steps)."""
+    kw = dict(steps=400, dt=0.35, ks_max=1.2)
+    jb, hb = torch.zeros((1, 128, 128), device=card), torch.zeros((1, 1, 128), device=card)
+    phib = torch.zeros((1, 8, 128), device=card)
+    solos = []
+    for off, n in ((3, 15), (21, 40), (77, 30)):
+        op = tops.anneal_operands(*(x.to(card) for x in _t(*_loop_instance(off, n))),
+                                  tprng.key(off), replicas=8)
+        js, hs, p0 = op.j_scaled, op.h_scaled, op.phi0
+        lanes = slice(off, off + n)
+        jb[0, lanes, lanes], hb[0, 0, lanes], phib[0, :, lanes] = js[:n, :n], hs[0, :n], p0[:, :n]
+        solos.append((lanes, n, tcobi.cobi_trajectory_cuda(js, hs, p0, **kw)))
+    packed = tcobi.cobi_trajectory_batched_cuda(jb, hb, phib, **kw)
+    for lanes, n, solo in solos:
+        assert torch.equal(packed[0, :, lanes], solo[:, :n])
 
 
 @pytest.mark.parametrize("n,r", [(8, 4), (59, 33), (128, 256), (200, 17)])
