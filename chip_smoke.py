@@ -47,10 +47,15 @@ Phases, each of which must pass or the script exits non-zero:
      two equal, and counts the host syncs of one batched call under
      ``torch.cuda.set_sync_debug_mode("warn")`` (more than one fails);
   3c. the MCMC kernels against their plain versions, bitwise (spins and
-     energies): both proposal modes, reduce none and best, B = 3 instances,
-     R = 16 over replica blocks of 8 and 16, chunks of 32, 64 and 128, the
-     fused best over the first 3 reads, float-normal and chip-integer
-     instances, and one 200-spin instance (256 lanes, J from global memory);
+     energies), and the fused best against the sweep kernel + first argmin:
+     both proposal modes, B = 3 instances, R = 16 over replica blocks of 8
+     and 16, chunks of 32, 64 and 128, the fused best over the first 3
+     reads, float-normal and chip-integer instances, and one 200-spin
+     instance (256 lanes); then live extents 1, 31, 32, 33, 64, 65 and 128
+     in both modes, a batch of extents 7 / 45 / 100, a zero row and column,
+     1000 spins on 1024 lanes (J from global memory), R 8 / 64 / 1024 with
+     replica blocks 8 / 32 / 256; and one fused call at R 8 counted as one
+     device launch under torch.profiler;
   4c. the MCMC family on the main path: the 20-sentence document through
      ``solve_es(SolveConfig(solver="mcmc"))`` (10 iterations x 8 reads x 50
      sweeps) inline and through ``McmcPoolBackend(4)``; the 100-sentence
@@ -88,9 +93,11 @@ Phases, each of which must pass or the script exits non-zero:
   5. time every kernel, its plain version and its bound (at the padded
      shapes the kernels take, and at the instances' own n spins and reads;
      a COBI anneal row's bound_ms is the latter, since its loop skips the
-     lanes past the live extent);
+     lanes past the live extent, and an MCMC row's too: it anneals the
+     instance's own spins);
      the batched kernels at the 16-document drain's shape; the MCMC kernels
-     at the main path's shape (B = 1, R = 8, 128 lanes, 50 sweeps); the
+     at the main path's shape (B = 1, R = 8, 128 lanes, 50 sweeps) through
+     their wrappers and from their C entries, and at 1024 reads; the
      flash kernel at the stage's buckets, beside the FMA kernel called
      directly at bf16 and one SDPA call as its yardstick, with each one's
      achieved TFLOP/s;
@@ -627,6 +634,26 @@ def main() -> None:
         return IsingProblem(h=torch.tensor(g.standard_normal(n).astype(np.float32), device=dev),
                             j=torch.tensor(j + j.T, device=dev))
 
+    def hold_mcmc(label, mop, reads, **kw) -> None:
+        """Both MCMC kernels against their plain versions, bitwise, and the
+        fused best against the sweep kernel + first argmin over ``reads``."""
+        e_k, s_k = md.mcmc_sweep_batched(*mop, **kw)
+        e_p, s_p = md.mcmc_sweep_batched_plain(*mop, **kw)
+        be_k, bs_k = md.mcmc_fused_best_batched(*mop, **kw)
+        be_p, bs_p = md.mcmc_fused_best_batched_plain(*mop, **kw)
+        if not (torch.equal(e_k, e_p) and torch.equal(s_k, s_p)):
+            fail(f"mcmc_sweep_batched vs plain ({label}): spins equal {torch.equal(s_k, s_p)}, "
+                 f"max energy err {float((e_k - e_p).abs().max())}")
+        if not (torch.equal(be_k, be_p) and torch.equal(bs_k, bs_p)):
+            fail(f"mcmc_fused_best_batched vs plain ({label}): {be_k.tolist()} vs {be_p.tolist()}")
+        rows_b = torch.arange(e_k.shape[0], device=dev)
+        first = torch.argmin(e_k[:, :reads], dim=1)
+        if not (torch.equal(be_k, e_k[rows_b, first]) and torch.equal(bs_k, s_k[rows_b, first])):
+            fail(f"mcmc fused best != sweep kernel + first argmin over {reads} reads ({label})")
+        for name, got_e, want_e in (("mcmc_sweep_batched", e_k, e_p),
+                                    ("mcmc_fused_best_batched", be_k, be_p)):
+            errs[name] = max(errs.get(name, 0.0), float((got_e - want_e).abs().max()))
+
     mcmc_keys = list(prng.split(prng.key(3), 3))
     integer = [quantize_ising(improved_ising(problem), key=kq).ising
                for kq, _ in pipeline._iteration_keys(key, 3)]
@@ -642,27 +669,57 @@ def main() -> None:
         replicas = 8 if kind == "wide" else 16
         mop = mcmc_operands(insts_k, mcmc_keys, replicas, mcmc_reads)
         kw = dict(sweeps=3 if kind == "wide" else 10, chunk=chunk, mode=mode, replica_block=rb)
-        e_k, s_k = md.mcmc_sweep_batched(*mop, **kw)
-        e_p, s_p = md.mcmc_sweep_batched_plain(*mop, **kw)
-        be_k, bs_k = md.mcmc_fused_best_batched(*mop, **kw)
-        be_p, bs_p = md.mcmc_fused_best_batched_plain(*mop, **kw)
-        label = f"{kind} mode={mode} chunk={chunk} replica_block={rb} B={len(insts_k)} R={replicas}"
-        if not (torch.equal(e_k, e_p) and torch.equal(s_k, s_p)):
-            fail(f"mcmc_sweep_batched vs plain ({label}): spins equal {torch.equal(s_k, s_p)}, "
-                 f"max energy err {float((e_k - e_p).abs().max())}")
-        if not (torch.equal(be_k, be_p) and torch.equal(bs_k, bs_p)):
-            fail(f"mcmc_fused_best_batched vs plain ({label}): {be_k.tolist()} vs {be_p.tolist()}")
-        rows_b = torch.arange(len(insts_k), device=dev)
-        first = torch.argmin(e_k[:, :mcmc_reads], dim=1)
-        if not (torch.equal(be_k, e_k[rows_b, first]) and torch.equal(bs_k, s_k[rows_b, first])):
-            fail(f"mcmc fused best != sweep kernel + first argmin over {mcmc_reads} reads ({label})")
-        for name, got_e, want_e in (("mcmc_sweep_batched", e_k, e_p),
-                                    ("mcmc_fused_best_batched", be_k, be_p)):
-            errs[name] = max(errs.get(name, 0.0), float((got_e - want_e).abs().max()))
-    torch.cuda.synchronize()
+        hold_mcmc(f"{kind} mode={mode} chunk={chunk} replica_block={rb} B={len(insts_k)} "
+                  f"R={replicas}", mop, mcmc_reads, **kw)
     print(f"mcmc kernels vs plain: ok, bitwise in {len(cases)} cases "
           f"(float-normal and chip-integer x sweep/random x chunk/replica_block "
           f"(32, 8) (64, 16) (128, 8), B=3 R=16 reads={mcmc_reads}; 200 spins on 256 lanes)")
+    # The redesigned kernel's own cases: live extents around its 32-lane
+    # words (1 to 4 words a lane), a batch whose instances differ in extent,
+    # a zero row and column, N 1024 with J read from global memory, R 8 (one
+    # cluster of 2 blocks), 64 (two passes) and 1024, and chunks 32/64/128.
+    extent_cases = []
+    for n_live in (1, 31, 32, 33, 64, 65, 128):
+        for mode in ("sweep", "random"):
+            extent_cases.append((f"extent {n_live} {mode}", [normal_instance(60 + n_live, n_live)],
+                                 8, 5, dict(sweeps=5, mode=mode, chunk=128, replica_block=8)))
+    zero = normal_instance(9, 40)
+    zero.j[17, :] = 0.0
+    zero.j[:, 17] = 0.0
+    for mode in ("sweep", "random"):
+        extent_cases.append((f"mixed extents 7/45/100 {mode}",
+                             [normal_instance(81, 7), normal_instance(82, 45),
+                              normal_instance(83, 100)],
+                             16, 11, dict(sweeps=5, mode=mode, chunk=64, replica_block=16)))
+    extent_cases += [
+        ("zero row and column 17 of 40", [zero], 8, 8, dict(sweeps=5, chunk=32, replica_block=8)),
+        ("N 1024, 1000 spins, J global", [normal_instance(84, 1000)], 8, 8,
+         dict(sweeps=2, chunk=32, replica_block=8)),
+        ("R 64 replica_block 32", [normal_instance(85, 20)], 64, 50,
+         dict(sweeps=5, chunk=64, replica_block=32)),
+        ("R 1024 replica_block 256", [normal_instance(86, 20)], 1024, 1000,
+         dict(sweeps=3, chunk=128, replica_block=256)),
+    ]
+    for label, insts_k, replicas, reads, kw in extent_cases:
+        keys_k = list(prng.split(prng.key(5), len(insts_k)))
+        hold_mcmc(label, mcmc_operands(insts_k, keys_k, replicas, reads), reads, **kw)
+    torch.cuda.synchronize()
+    print(f"mcmc kernels vs plain: ok, bitwise in {len(extent_cases)} more cases: "
+          + "; ".join(label for label, *_ in extent_cases))
+    # One fused call at R 8 is one device launch (its two blocks one cluster).
+    mop8 = mcmc_operands([normal_instance(87, 20)], mcmc_keys[:1], 8, 8)
+    md.mcmc_fused_best_batched(*mop8, sweeps=5, replica_block=8)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        md.mcmc_fused_best_batched(*mop8, sweeps=5, replica_block=8)
+        torch.cuda.synchronize()
+    fused_kernels = [ev.name for ev in prof.events()
+                     if ev.device_type == torch.autograd.DeviceType.CUDA
+                     and not ev.name.startswith(("Memcpy", "Memset"))]
+    print(f"mcmc fused best at R 8: {len(fused_kernels)} device launch(es) under torch.profiler "
+          f"{fused_kernels}")
+    if len(fused_kernels) != 1:
+        fail(f"mcmc fused best at R 8 took {len(fused_kernels)} device launches, not 1")
 
     # ------------------------------------------------------------ 3d. flash attention
     # The flash kernel against its plain version (same blocked algorithm;
@@ -1299,15 +1356,16 @@ def main() -> None:
     # padded lanes, 8 padded slots), and at the instance's own n spins, its
     # reads and its one slot; every row carries both.  bound_ms is the work
     # this run's data needs: the COBI kernels run repro::anneal, whose loop
-    # skips the lanes past the live extent, so theirs is the latter; the
-    # energy kernels compute on every padded lane, so theirs is the former.
+    # skips the lanes past the live extent, and the MCMC kernels anneal the
+    # instance's own spins only, so theirs is the latter; the energy kernels
+    # compute on every padded lane, so theirs is the former.
     n_real = problem.n
 
     def bounds(name, padded, own) -> dict:
         """The row's bound keys from its (ms, by) at the padded shapes and at
         the instances' own spins."""
         (p_ms, p_by), (u_ms, u_by) = padded, own
-        skips_padding = name.startswith("cobi_")
+        skips_padding = name.startswith(("cobi_", "mcmc_"))
         return {"bound_ms": u_ms if skips_padding else p_ms,
                 "bound_by": u_by if skips_padding else p_by,
                 "bound_padded_ms": p_ms, "bound_padded_by": p_by,
@@ -1373,9 +1431,32 @@ def main() -> None:
 
     # The MCMC kernels at the main path's shape: the direct document's first
     # rounded instance (20 spins on 128 lanes), 8 replicas, 50 sweeps, sweep
-    # mode.  bound_ms counts 128 proposals a sweep on 128 lanes, as the
-    # reference's kernel makes them; bound_unpadded_ms the 20 live ones on
-    # the instance's own 20 spins.
+    # mode, through the wrapper and from the C entry (back-to-back wrapper
+    # calls, each with its ladder and three host-to-device copies, can outrun
+    # the device).  bound_padded_ms counts 128 proposals a sweep on 128
+    # lanes, as the reference's kernel makes them; bound_ms the 20 live ones
+    # on the instance's own 20 spins, which is all the kernel anneals.
+    mcmc_lib = _build.library("mcmc_dynamics")
+
+    def mcmc_entry(name, mop, sweeps, replica_block):
+        """A call of the C entry of kernel ``name`` on operands ``mop``
+        (sweep mode, chunk 128), its ladder and outputs made beforehand."""
+        j, h, s0, seeds, params = mop
+        b, r, n = s0.shape
+        temps = md._ladders(params, sweeps).to(dev)
+        seeds, params = seeds.to(dev), params.to(dev)
+        nblk = r // mcmc_lib.mcmc_block_rows()
+        outs = ((torch.empty((b, r), device=dev), torch.empty_like(s0))
+                if name == "mcmc_sweep_batched" else
+                (torch.empty((b, nblk), device=dev), torch.empty((b, nblk, n), device=dev),
+                 torch.empty(b, device=dev), torch.empty((b, n), device=dev)))
+        entry = getattr(mcmc_lib, "mcmc_sweep" if name == "mcmc_sweep_batched" else
+                        "mcmc_fused_best")
+        args = (j.data_ptr(), h.data_ptr(), s0.data_ptr(), seeds.data_ptr(), params.data_ptr(),
+                temps.data_ptr(), *(t.data_ptr() for t in outs), b, r, n, sweeps, 128, 0,
+                replica_block, _build.stream_of(s0))
+        return lambda: _build.check(entry(*args), name)
+
     mop = mcmc_operands([inst], [k_solve], READS, READS)
     mkw = dict(sweeps=MCMC_SWEEPS, mode="sweep", replica_block=READS)
     mcmc_jobs = {
@@ -1387,6 +1468,7 @@ def main() -> None:
     }
     for name, (kern, plain, replaces) in mcmc_jobs.items():
         ms = cuda_ms(lambda: kern(*mop, **mkw), reps=50)
+        entry_ms = cuda_ms(mcmc_entry(name, mop, MCMC_SWEEPS, READS), reps=100)
         plain_ms = cuda_ms(lambda: plain(*mop, **mkw), reps=2, warmup=1)
         b_ms, by = bound_ms(*mcmc_work(name, READS, 128, 128, MCMC_SWEEPS))
         u_ms, u_by = bound_ms(*mcmc_work(name, READS, inst.n, inst.n, MCMC_SWEEPS))
@@ -1394,12 +1476,13 @@ def main() -> None:
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/mcmc_dynamics.cu",
             "replaces": replaces, "launches": launches[name],
-            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms, "library_ms": None,
-            **bounds(name, (b_ms, by), (u_ms, u_by)),
+            "max_abs_err": errs[name], "ms": ms, "ms_entry": entry_ms, "plain_ms": plain_ms,
+            "library_ms": None, **bounds(name, (b_ms, by), (u_ms, u_by)),
         })
-        print(f"time {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {b_ms:.6f} ms ({by}) at B=1 R={READS} N=128 128 proposals a sweep, "
-              f"{u_ms:.6f} ms ({u_by}) at N={inst.n}; sweeps={MCMC_SWEEPS}")
+        print(f"time {name}: kernel {ms:.4f} ms through the wrapper, {entry_ms:.4f} ms from its "
+              f"C entry, plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms ({by}) at B=1 R={READS} "
+              f"N=128 128 proposals a sweep, {u_ms:.6f} ms ({u_by}) at N={inst.n}; "
+              f"sweeps={MCMC_SWEEPS}")
     # Flash attention at the stage's buckets (bf16, causal, 12 heads of 64):
     # the kernel (the wgmma route) through its wrapper and from its C entry
     # (back-to-back wrapper calls at the 1024 bucket outrun the host's
@@ -1463,9 +1546,15 @@ def main() -> None:
         print(f"time {name} at reads=1024: kernel {ms:.4f} ms, bound {b_ms:.6f} ms ({by}) at "
               f"N={op_big.n_pad}, {u_ms:.6f} ms ({u_by}) at N={n_real}")
     mop_big = mcmc_operands([inst], [k_solve], 1024, 1024)
-    ms = cuda_ms(lambda: md.mcmc_sweep_batched(*mop_big, **{**mkw, "replica_block": 256}), reps=10)
-    b_ms, by = bound_ms(*mcmc_work("mcmc_sweep_batched", 1024, 128, 128, MCMC_SWEEPS))
-    print(f"time mcmc_sweep_batched at reads=1024: kernel {ms:.4f} ms, bound {b_ms:.6f} ms ({by})")
+    for name, kern in (("mcmc_sweep_batched", md.mcmc_sweep_batched),
+                       ("mcmc_fused_best_batched", md.mcmc_fused_best_batched)):
+        ms = cuda_ms(lambda: kern(*mop_big, **{**mkw, "replica_block": 256}), reps=10)
+        entry_ms = cuda_ms(mcmc_entry(name, mop_big, MCMC_SWEEPS, 256), reps=20)
+        b_ms, by = bound_ms(*mcmc_work(name, 1024, 128, 128, MCMC_SWEEPS))
+        u_ms, u_by = bound_ms(*mcmc_work(name, 1024, inst.n, inst.n, MCMC_SWEEPS))
+        print(f"time {name} at reads=1024: kernel {ms:.4f} ms through the wrapper, "
+              f"{entry_ms:.4f} ms from its C entry, bound {b_ms:.6f} ms ({by}) at N=128, "
+              f"{u_ms:.6f} ms ({u_by}) at N={inst.n}")
 
     # ------------------------------------------------------------ 6. result
     print(json.dumps({"kernels": rows}))

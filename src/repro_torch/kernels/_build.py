@@ -50,6 +50,7 @@ _ARGTYPES = {
     "mcmc_dynamics": {
         "mcmc_sweep": [P] * 8 + [I] * 7 + [P],
         "mcmc_fused_best": [P] * 10 + [I] * 7 + [P],
+        "mcmc_block_rows": [],
     },
     "flash_attention": {
         "flash_attention": [P] * 4 + [I] * 10 + [F, P],

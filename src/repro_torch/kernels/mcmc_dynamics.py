@@ -9,18 +9,22 @@ Ports of ``repro.kernels.mcmc_dynamics``:
     the same plus the first-argmin over the first ``reads`` replicas, so only
     each instance's winner leaves the card.
 
-Both bind to ``csrc/mcmc_dynamics.cu`` (grid (R / W, B), one warp per
-replica).  The operands are the Pallas functions': J (B, N, N), h (B, 1, N),
-s0 (B, R, N) +-1, per-instance seed words (B, 4) [init, pick, accept,
-spare] and params (B, 4) [t_hi, t_lo, n_real, reads]; N a multiple of 128,
-R a multiple of ``replica_block``.  Energies come back (B, R) and (B,), not
-broadcast over lanes.  The temperature ladder is computed on the host from
-params (``ref.mcmc_ladder``) and handed to the kernel.
+Both bind to ``csrc/mcmc_dynamics.cu`` (grid (R / 4, B), one warp per
+replica, its state in registers over the instance's live spins; the fused
+best is one launch up to R 32, its blocks one cluster, two beyond).  The
+operands are the Pallas functions': J (B, N, N), h (B, 1, N), s0 (B, R, N)
++-1, per-instance seed words (B, 4) [init, pick, accept, spare] and params
+(B, 4) [t_hi, t_lo, n_real, reads]; N a multiple of 128, R a multiple of
+``replica_block``; J and h zero outside each instance's live n_real block.
+Energies come back (B, R) and (B,), not broadcast over lanes.  The
+temperature ladder is computed on the host from params (``ref.mcmc_ladder``)
+and handed to the kernel.
 
 On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises.  Each wrapper counts its launches in
 ``.launches``.  Randomness is counter-based, so ``chunk`` and
-``replica_block`` change how the work is split and never the result.
+``replica_block`` never change the result; the kernels check them and split
+the work their own way.
 """
 
 from __future__ import annotations
@@ -64,10 +68,15 @@ def _launch(entry: str, j, h, s0, seeds, params, outs, *, sweeps, chunk, mode, r
     check_cuda_args(j, h, s0, *outs)
     b, r, n = s0.shape
     dev = s0.device
+    lib = _build.library("mcmc_dynamics")
+    if entry == "mcmc_fused_best":  # pass-1 scratch, one entry a block of replicas
+        nblk = r // lib.mcmc_block_rows()
+        outs = (torch.empty((b, nblk), dtype=torch.float32, device=dev),
+                torch.empty((b, nblk, n), dtype=torch.float32, device=dev), *outs)
     temps = _ladders(params, sweeps).to(dev)
     seeds = seeds.to(device=dev, dtype=torch.int64).contiguous()
     params = params.to(device=dev, dtype=torch.float32).contiguous()
-    err = getattr(_build.library("mcmc_dynamics"), entry)(
+    err = getattr(lib, entry)(
         j.data_ptr(), h.data_ptr(), s0.data_ptr(), seeds.data_ptr(), params.data_ptr(),
         temps.data_ptr(), *(t.data_ptr() for t in outs),
         b, r, n, sweeps, chunk, MODES[mode], replica_block, _build.stream_of(s0),
@@ -153,12 +162,9 @@ def mcmc_fused_best_batched(
         return mcmc_fused_best_batched_plain(j, h, s0, seeds, params, **kw)
     b, r, n = _check(j, h, s0, seeds, params, chunk=chunk, mode=mode,
                      replica_block=replica_block)
-    dev = s0.device
-    blk_e = torch.empty((b, r // 8), dtype=torch.float32, device=dev)  # >= 8 replicas a block
-    blk_rows = torch.empty((b, r // 8, n), dtype=torch.float32, device=dev)
-    e_out = torch.empty(b, dtype=torch.float32, device=dev)
-    s_out = torch.empty((b, n), dtype=torch.float32, device=dev)
-    _launch("mcmc_fused_best", j, h, s0, seeds, params, (blk_e, blk_rows, e_out, s_out), **kw)
+    e_out = torch.empty(b, dtype=torch.float32, device=s0.device)
+    s_out = torch.empty((b, n), dtype=torch.float32, device=s0.device)
+    _launch("mcmc_fused_best", j, h, s0, seeds, params, (e_out, s_out), **kw)
     _build.count_launch(mcmc_fused_best_batched)
     return e_out, s_out
 

@@ -9,6 +9,11 @@ objectives and curves.  The energies are equal because the port sums the
 initial energy in the reference's float32 order (``formulation.row_sum``);
 the acceptance test ``u < exp(...)`` uses torch's ``exp``, which may differ
 from XLA's by an ulp, and no decision of these cases flips.
+
+The CUDA kernels run only on the card: the ``cuda`` tests hold them against
+their plain versions there, bit for bit, and skip elsewhere; on the card,
+with no JAX installed, run them alone:
+``PYTHONPATH=src python3 -m pytest -q -m cuda tests/test_torch_mcmc.py``.
 """
 
 import dataclasses
@@ -20,19 +25,24 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-import jax
-import jax.numpy as jnp
+try:
+    import jax
+    import jax.numpy as jnp
 
-from repro.core import SolveConfig as JSolveConfig
-from repro.core.hardware import MCMC_CMOS as JMCMC_CMOS
-from repro.core import improved_ising as jimproved
-from repro.core import quantize_ising as jquantize
-from repro.core import solve_es as jsolve_es
-from repro.data.synthetic import synthetic_benchmark
-from repro.farm import McmcPoolBackend as JMcmcPool
-from repro.kernels import ops as jops
-from repro.kernels import ref as jref
-from repro.solvers.base import ising_solver as jising_solver
+    from repro.core import SolveConfig as JSolveConfig
+    from repro.core.hardware import MCMC_CMOS as JMCMC_CMOS
+    from repro.core import improved_ising as jimproved
+    from repro.core import quantize_ising as jquantize
+    from repro.core import solve_es as jsolve_es
+    from repro.data.synthetic import synthetic_benchmark
+    from repro.farm import McmcPoolBackend as JMcmcPool
+    from repro.kernels import ops as jops
+    from repro.kernels import ref as jref
+    from repro.solvers.base import ising_solver as jising_solver
+except ModuleNotFoundError:  # a machine with a card but no JAX runs only the cuda tests
+    jax = jnp = JSolveConfig = JMCMC_CMOS = jimproved = jquantize = jsolve_es = None
+    synthetic_benchmark = JMcmcPool = jops = jref = jising_solver = None
+from repro_torch import prng as tprng
 from repro_torch.core import SolveConfig, solve_es
 from repro_torch.core.formulation import IsingProblem
 from repro_torch.core.hardware import MCMC_CMOS
@@ -154,6 +164,65 @@ def test_batched_plain_versions_match_per_instance_oracle():
         np.testing.assert_array_equal(s_best[i].numpy(), np.asarray(s_ref[first]))
 
 
+def _np_instance(seed: int, n: int, zero=None):
+    """Float-normal (h, J) as numpy float32: J symmetric with a zero
+    diagonal; optionally row and column ``zero`` all zero."""
+    g = np.random.default_rng(seed)
+    j = np.triu(g.standard_normal((n, n)).astype(np.float32), 1)
+    j = j + j.T
+    if zero is not None:
+        j[zero, :] = j[:, zero] = 0.0
+    return g.standard_normal(n).astype(np.float32), j
+
+
+def _operands(insts, keys, replicas, reads, lanes):
+    """The batched wrappers' operands for numpy (h, J) instances on ``lanes``
+    lanes, as ops.mcmc_anneal builds them for one instance: J (B, L, L),
+    h (B, 1, L), s0 (B, R, L), seeds (B, 4), params (B, 4), on the CPU."""
+    b = len(insts)
+    jp, hp = torch.zeros((b, lanes, lanes)), torch.zeros((b, 1, lanes))
+    s0, seeds, params = [], [], []
+    for i, ((h, j), key) in enumerate(zip(insts, keys)):
+        n = len(h)
+        jp[i, :n, :n], hp[i, 0, :n] = _t(j), _t(h)
+        sd = tref.mcmc_seeds(key)
+        seeds.append(sd)
+        s0.append(tref.mcmc_init_spins(sd[0], replicas, lanes))
+        params.append([float(tref.mcmc_t_hi(_t(j))), 0.05, float(n), float(reads)])
+    return jp, hp, torch.stack(s0), torch.stack(seeds), torch.tensor(params)
+
+
+@pytest.mark.parametrize("reduce", ["none", "best"])
+@pytest.mark.parametrize("mode", ["sweep", "random"])
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 65, 129])
+def test_plain_anneal_matches_oracle_at_extent_boundaries(n, mode, reduce):
+    """The yardstick the CUDA kernels are held to, at live extents around
+    their 32-lane words, on 256 lanes: the batched plain versions equal the
+    reference's oracle (``ops.mcmc_anneal(impl="ref")``'s ``ref_mcmc_sweep``)
+    bit for bit over 3 sweeps; the fused best is the first argmin over the
+    first 5 of 8 replicas."""
+    replicas, reads, lanes, sweeps = 8, 5, 256, 3
+    h, j = _np_instance(n, n)
+    jkey = jax.random.key(1000 + n)
+    operands = _operands([(h, j)], [_tkey(jkey)], replicas, reads, lanes)
+    s_ref, e_ref = jref.ref_mcmc_sweep(
+        jnp.asarray(operands[0][0].numpy()), jnp.asarray(operands[1][0, 0].numpy()), jkey,
+        replicas=replicas, sweeps=sweeps, mode=mode, t_hi=jref.mcmc_t_hi(jnp.asarray(j)),
+        t_lo=0.05, n_real=n,
+    )
+    s_ref, e_ref = np.asarray(s_ref), np.asarray(e_ref)
+    kw = dict(sweeps=sweeps, mode=mode, chunk=32, replica_block=8)
+    if reduce == "none":
+        e, s = tmcmc.mcmc_sweep_batched(*operands, **kw)
+        np.testing.assert_array_equal(s[0].numpy(), s_ref)
+        np.testing.assert_array_equal(e[0].numpy(), e_ref)
+    else:
+        e, s = tmcmc.mcmc_fused_best_batched(*operands, **kw)
+        first = int(np.argmin(e_ref[:reads]))  # the first minimum on ties
+        assert float(e[0]) == float(e_ref[first])
+        np.testing.assert_array_equal(s[0].numpy(), s_ref[first])
+
+
 def test_cpu_tensors_run_plain_versions_and_count_no_launch():
     before = [w.launches for w in WRAPPERS]
     h, j = _random_instance(3, 10)
@@ -199,6 +268,64 @@ def test_launch_counts_are_exact_under_concurrent_launches(monkeypatch):
             t.join(timeout=60)
             assert not t.is_alive()
         assert wrapper.launches == threads * calls
+
+
+# ------------------------------------------------------------- on the card
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs CUDA: torch.cuda.is_available() is False (no GPU or a CPU-only torch)")
+    return torch.device("cuda")
+
+
+def _hold_against_plain(card, operands, reads, **kw):
+    """Both kernels against their plain versions on the card, bit for bit,
+    and the fused best against the sweep kernel + first argmin over the
+    first ``reads`` replicas."""
+    j, h, s0 = (x.to(card) for x in operands[:3])
+    args = (j, h, s0, *operands[3:])
+    e_k, s_k = tmcmc.mcmc_sweep_batched(*args, **kw)
+    e_p, s_p = tmcmc.mcmc_sweep_batched_plain(*args, **kw)
+    assert torch.equal(e_k, e_p) and torch.equal(s_k, s_p)
+    be_k, bs_k = tmcmc.mcmc_fused_best_batched(*args, **kw)
+    be_p, bs_p = tmcmc.mcmc_fused_best_batched_plain(*args, **kw)
+    assert torch.equal(be_k, be_p) and torch.equal(bs_k, bs_p)
+    rows = torch.arange(e_k.shape[0], device=card)
+    first = torch.argmin(e_k[:, :reads], dim=1)
+    assert torch.equal(be_k, e_k[rows, first]) and torch.equal(bs_k, s_k[rows, first])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["sweep", "random"])
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 64, 65, 128])
+def test_kernels_match_plain_at_extent_boundaries_on_card(card, n, mode):
+    """One instance of n live spins on 128 lanes, R 8 (two blocks, one
+    cluster: the fused best in one launch), the best over the first 5
+    reads, 5 sweeps."""
+    operands = _operands([_np_instance(n, n)], [tprng.key(n)], 8, 5, 128)
+    _hold_against_plain(card, operands, 5, sweeps=5, mode=mode, replica_block=8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["sweep", "random"])
+def test_kernels_match_plain_on_a_mixed_extent_batch_on_card(card, mode):
+    """B 3 instances of 7, 45 and 100 live spins (1, 2 and 4 words a lane)
+    in one launch, R 16 (a cluster of four blocks an instance), the best
+    over the first 11 reads, and a zero row and column in the second."""
+    insts = [_np_instance(1, 7), _np_instance(2, 45, zero=17), _np_instance(3, 100)]
+    keys = [tprng.key(20 + i) for i in range(3)]
+    operands = _operands(insts, keys, 16, 11, 128)
+    _hold_against_plain(card, operands, 11, sweeps=5, mode=mode, chunk=64, replica_block=16)
+
+
+@pytest.mark.cuda
+def test_fused_best_beyond_one_cluster_matches_plain_on_card(card):
+    """R 64 in replica blocks of 32: 16 blocks of 4 replicas, more than a
+    cluster holds, so the fused best takes its two passes; reads 50 < R."""
+    operands = _operands([_np_instance(4, 20)], [tprng.key(4)], 64, 50, 128)
+    _hold_against_plain(card, operands, 50, sweeps=5, mode="random", replica_block=32)
 
 
 # ------------------------------------------------------- registry and bank
