@@ -27,6 +27,14 @@ Phases, each of which must pass or the script exits non-zero:
      steps the fused batched best against the batched trajectory + sign +
      stacked energies + first argmin, and against each job's solo fused
      best from the same phases; one bin of 100 one-spin jobs (S = 100);
+  3e. the energy kernel (the live extent, operands read in place) against
+     its plain version bit for bit on chip-range integer instances: n 1, 7,
+     20, 59, 128, 129, 200 and 1024 lanes x R 1, 8, 17, 256 and 1024, B 3
+     and 1, int8 and float32 spins, the live corner of zero-padded operands
+     read at its strides; on non-integer instances against the COBI readout
+     epilogue's energies bit for bit, and the tile-aligned twin against the
+     unpadded call; one ``ops.ising_energy`` call at the main path's shape
+     counted as one device launch under torch.profiler (no padding copy);
   4. the main path: a 20-sentence document through ``solve_es`` (10
      iterations x 8 reads x 400 steps), a 100-sentence document through the
      windowed decomposition, and the solver's fused ``reduce="best"`` /
@@ -91,11 +99,15 @@ Phases, each of which must pass or the script exits non-zero:
      its device time split into flash (by kernel name, both routes),
      GEMMs and the rest, and the device's idle share;
   5. time every kernel, its plain version and its bound (at the padded
-     shapes the kernels take, and at the instances' own n spins and reads;
-     a COBI anneal row's bound_ms is the latter, since its loop skips the
-     lanes past the live extent, and an MCMC row's too: it anneals the
-     instance's own spins);
-     the batched kernels at the 16-document drain's shape; the MCMC kernels
+     shapes the reference's kernels take, and at the instances' own n spins
+     and reads; a COBI anneal row's bound_ms is the latter, since its loop
+     skips the lanes past the live extent, an MCMC row's too (it anneals the
+     instance's own spins), and the energy row's (it is handed them));
+     the energy kernel as the main path calls it (int8 spins, R = 8, the
+     instance's 20 lanes) through ``ops.ising_energy`` and from its C entry,
+     its tile-aligned twin at (8, 128), and the launch floor (the C entry at
+     R = 1, n = 1); the batched kernels at the 16-document drain's shape;
+     the MCMC kernels
      at the main path's shape (B = 1, R = 8, 128 lanes, 50 sweeps) through
      their wrappers and from their C entries, and at 1024 reads; the
      flash kernel at the stage's buckets, beside the FMA kernel called
@@ -174,23 +186,40 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int) -> float:
+    """Device milliseconds per call under torch.profiler (CUPTI): the kernels'
+    own time, where back-to-back calls of a short kernel measure the host."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(ev.self_device_time_total for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA) / reps / 1e3
+
+
 def bound_ms(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS) -> tuple[float, str]:
     t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def work(name: str, r: int, n: int, s: int) -> tuple[float, float]:
+def work(name: str, r: int, n: int, s: int, spin_bytes: int = 4) -> tuple[float, float]:
     """(FLOP, bytes) of one call of kernel ``name`` on r reads, n lanes and
     s slots at STEPS steps: each input read once, each output written once.
     The anneal counts the stacked [cos; sin] @ J product; sin/cos and the
-    elementwise update are not counted.  A batched kernel's work is the sum
-    of its instances' (:func:`batched_work`)."""
+    elementwise update are not counted.  The energy kernel's spins count at
+    ``spin_bytes`` a spin, the type it reads (1 for int8).  A batched
+    kernel's work is the sum of its instances' (:func:`batched_work`)."""
     f32 = 4
     anneal = STEPS * 2 * (2 * r) * n * n
     score = 2 * r * n * n + 4 * r * n
     return {
         "cobi_trajectory": (anneal, f32 * (n * n + n + 2 * r * n)),
-        "ising_energy": (score, f32 * (r * n + n + n * n + r)),
+        "ising_energy": (score, spin_bytes * r * n + f32 * (n + n * n + r)),
         "cobi_fused_best": (anneal + score + 2 * r * n * s,
                             f32 * (2 * n * n + 2 * n + n * s + s + r * n + s + s * n)),
         "cobi_readout": (anneal + score, f32 * (2 * n * n + 2 * n + 2 * r * n + r)),
@@ -608,6 +637,78 @@ def main() -> None:
         fail("100-slot bin: energies not exact or padding slots not +inf")
     print("100-slot bin (S=100 padded to 104): ok")
     torch.cuda.synchronize()
+
+    # ------------------------------------------------------------ 3e. the energy kernel
+    # The energy kernel reads the live extent in place.  Against its plain
+    # version, bit for bit, on chip-range integer instances: n 1 to 1024
+    # lanes x R 1 to 1024, B 3 and 1, int8 and float32 spins, and the live
+    # corner of zero-padded operands read at its row strides.  On
+    # non-integer instances against the COBI readout epilogue's energies
+    # (the same fmaf chain, density and row sum, there over 128 lanes), and
+    # the tile-aligned twin against the unpadded call.  One ops.ising_energy
+    # call at the main path's shape is one device launch under
+    # torch.profiler: no padding copy, no cast.
+    def int_stack(seed: int, b: int, n: int):
+        g = np.random.default_rng(seed)
+        j = np.triu(g.integers(-14, 15, (b, n, n)), 1).astype(np.float32)
+        return (torch.tensor(g.integers(-14, 15, (b, n)).astype(np.float32), device=dev),
+                torch.tensor(j + j.transpose(0, 2, 1), device=dev))
+
+    def spin_rows(seed: int, *shape):
+        g = np.random.default_rng(seed)
+        return torch.tensor(np.where(g.random(shape) < 0.5, 1, -1).astype(np.int8), device=dev)
+
+    energy_lanes, energy_rows = (1, 7, 20, 59, 128, 129, 200, 1024), (1, 8, 17, 256, 1024)
+    for n in energy_lanes:
+        for r in energy_rows:
+            h3, j3 = int_stack(1031 * n + r, 3, n)
+            s3 = spin_rows(n + r, 3, r, n)
+            want = ie.ising_energy_batched_plain(s3, h3[:, None], j3)
+            for s in (s3, s3.float()):
+                got = ie.ising_energy_batched_cuda(s, h3[:, None], j3)
+                one = ie.ising_energy_cuda(s[1], h3[1:2], j3[1])
+                if not (torch.equal(got, want) and torch.equal(one, want[1])):
+                    fail(f"ising_energy vs plain at n={n} R={r} {s.dtype}: max err "
+                         f"{float((got - want).abs().max())} (B 3), "
+                         f"{float((one - want[1]).abs().max())} (B 1)")
+            sp = torch.zeros((r, n + 5), dtype=torch.int8, device=dev)
+            jp = torch.zeros((n + 5, n + 5), device=dev)
+            sp[:, :n], jp[:n, :n] = s3[0], j3[0]
+            if not torch.equal(ops.ising_energy(sp[:, :n], h3[0], jp[:n, :n]), want[0]):
+                fail(f"ising_energy on strided operands at n={n} R={r} != plain")
+    for n, reads in ((20, 8), (100, 64), (128, 8)):
+        g = np.random.default_rng(n)
+        hf = torch.tensor(g.normal(size=n).astype(np.float32), device=dev)
+        jf = g.normal(size=(n, n)).astype(np.float32)
+        jf = torch.tensor((jf + jf.T) / np.float32(2), device=dev)
+        op = ops.anneal_operands(hf, jf, prng.key(n), replicas=reads)
+        s_k, e_k = cd.cobi_readout_cuda(op.j_scaled, op.h_scaled, op.j_orig, op.h_orig, op.phi0,
+                                        steps=100, dt=0.35, ks_max=1.2)
+        live, want = s_k[:reads, :n], e_k[:reads]
+        got = [ops.ising_energy(s, hf, jf) for s in (live, live.contiguous(), live.to(torch.int8))]
+        got.append(ie.ising_energy_cuda(live, op.h_orig[:, :n], op.j_orig[:n, :n]))
+        if torch.equal(want, want.round()) or not all(torch.equal(e, want) for e in got):
+            fail(f"ising_energy != the readout epilogue's energies on a non-integer instance "
+                 f"(n={n}, R={reads})")
+        sp = torch.zeros((8, 128), device=dev)
+        sp[:, :n] = live[:8]
+        if not torch.equal(ie.ising_energy_cuda(sp, op.h_orig, op.j_orig), want[:8]):
+            fail(f"the tile-aligned ising_energy_cuda != the unpadded call (n={n})")
+    s_main = spin_rows(20, READS, inst.n)
+    ops.ising_energy(s_main, inst.h, inst.j)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        ops.ising_energy(s_main, inst.h, inst.j)
+        torch.cuda.synchronize()
+    energy_launches = [ev.name for ev in prof.events()
+                       if ev.device_type == torch.autograd.DeviceType.CUDA]
+    print(f"ising_energy vs plain: bitwise at n {list(energy_lanes)} x R {list(energy_rows)}, "
+          f"B 3 and 1, int8 and float32 spins, strided corners; == the readout epilogue on "
+          f"non-integer instances (n 20, 100, 128) and the tile-aligned twin == unpadded; one "
+          f"ops.ising_energy call (R={READS}, n={inst.n}, int8): {len(energy_launches)} device "
+          f"launch(es) under torch.profiler {energy_launches}")
+    if len(energy_launches) != 1:
+        fail(f"ops.ising_energy took {len(energy_launches)} device launches, not 1")
 
     # ------------------------------------------------------------ 3c. MCMC kernels
     def mcmc_operands(instances, keys, replicas, reads):
@@ -1335,10 +1436,6 @@ def main() -> None:
             lambda: cd.cobi_trajectory_cuda(op.j_scaled, op.h_scaled, op.phi0, **full),
             lambda: cd.cobi_trajectory_plain(op.j_scaled, op.h_scaled, op.phi0, **full),
             "src/repro/kernels/cobi_dynamics.py:232", "cobi_dynamics.cu"),
-        "ising_energy": (
-            lambda: ie.ising_energy_cuda(spins, op.h_orig, op.j_orig),
-            lambda: ie.ising_energy_plain(spins, op.h_orig, op.j_orig),
-            "src/repro/kernels/ising_energy.py:43", "ising_energy.cu"),
         "cobi_fused_best": (
             lambda: cd.cobi_fused_best_cuda(op.j_scaled, op.h_scaled, op.j_orig, op.h_orig,
                                             mask, rd, op.phi0, **full),
@@ -1352,20 +1449,22 @@ def main() -> None:
                                           op.phi0, **full),
             "src/repro/kernels/cobi_dynamics.py:419", "cobi_dynamics.cu"),
     }
-    # Two bounds: at the operands as the kernels take them (R=8 rows, 128
-    # padded lanes, 8 padded slots), and at the instance's own n spins, its
-    # reads and its one slot; every row carries both.  bound_ms is the work
-    # this run's data needs: the COBI kernels run repro::anneal, whose loop
-    # skips the lanes past the live extent, and the MCMC kernels anneal the
-    # instance's own spins only, so theirs is the latter; the energy kernels
-    # compute on every padded lane, so theirs is the former.
+    # Two bounds: at the operands as the reference's kernels take them (R=8
+    # rows, 128 padded lanes, 8 padded slots), and at the instance's own n
+    # spins, its reads and its one slot; every row carries both.  bound_ms is
+    # the work this run's data needs: the COBI kernels run repro::anneal,
+    # whose loop skips the lanes past the live extent, the MCMC kernels
+    # anneal the instance's own spins only, and the energy kernel is handed
+    # the instance's own spins, h and J, so theirs is the latter; the stacked
+    # energy scores the farm's stack at its width (128 lanes), so its bound
+    # is the former.
     n_real = problem.n
 
     def bounds(name, padded, own) -> dict:
         """The row's bound keys from its (ms, by) at the padded shapes and at
         the instances' own spins."""
         (p_ms, p_by), (u_ms, u_by) = padded, own
-        skips_padding = name.startswith(("cobi_", "mcmc_"))
+        skips_padding = name == "ising_energy" or name.startswith(("cobi_", "mcmc_"))
         return {"bound_ms": u_ms if skips_padding else p_ms,
                 "bound_by": u_by if skips_padding else p_by,
                 "bound_padded_ms": p_ms, "bound_padded_by": p_by,
@@ -1374,8 +1473,8 @@ def main() -> None:
     reset_counts()  # timing launches are not the main path's
     rows = []
     for name, (kern, plain, replaces, source) in jobs.items():
-        ms = cuda_ms(kern, reps=200 if name == "ising_energy" else 20)
-        plain_ms = cuda_ms(plain, reps=50 if name == "ising_energy" else 3, warmup=1)
+        ms = cuda_ms(kern, reps=20)
+        plain_ms = cuda_ms(plain, reps=3, warmup=1)
         (b_ms, by), (u_ms, u_by) = (bound_ms(*work(name, op.r_pad, op.n_pad, mask.shape[1])),
                                     bound_ms(*work(name, READS, n_real, 1)))
         rows.append({
@@ -1388,6 +1487,56 @@ def main() -> None:
         print(f"time {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {b_ms:.6f} ms ({by}) at R={op.r_pad} N={op.n_pad}, "
               f"{u_ms:.6f} ms ({u_by}) at R={READS} N={n_real}; steps={STEPS}")
+
+    # The energy kernel as the main path calls it: cobi_anneal(reduce="none")
+    # hands ops.ising_energy the int8 (8, 20) spins of the direct document's
+    # instance and its unpadded h and J.  Timed with CUDA events through ops
+    # (ms, the wrapper included), from the C entry (ms_entry), as the
+    # tile-aligned twin ising_energy_cuda on the (8, 128) float32 padded
+    # operands (ms_twin), and from the C entry at R 1, n 1 (ms_floor: the
+    # launch floor).  Back-to-back calls of a kernel this short measure the
+    # host, so the kernel's own device time under torch.profiler stands
+    # beside them (ms_device, ms_floor_device).  The bound counts the int8
+    # spins at a byte each.
+    e_lib = _build.library("ising_energy")
+
+    def energy_entry(s, h, j):
+        """A call of the energy kernel's C entry on one instance, its output
+        made beforehand."""
+        out = torch.empty((1, s.shape[0]), device=dev)
+        args = (s.data_ptr(), int(s.dtype == torch.int8), h.data_ptr(), j.data_ptr(),
+                out.data_ptr(), 1, s.shape[0], s.shape[1], s.numel(), s.stride(0), h.shape[-1],
+                j.numel(), j.stride(0), _build.stream_of(s))
+        return lambda: _build.check(e_lib.ising_energy(*args), "ising_energy")
+
+    s_main = spins[:, :n_real].to(torch.int8)
+    ms = cuda_ms(lambda: ops.ising_energy(s_main, inst.h, inst.j), reps=200)
+    entry_ms = cuda_ms(energy_entry(s_main, inst.h, inst.j), reps=500)
+    twin_ms = cuda_ms(lambda: ie.ising_energy_cuda(spins, op.h_orig, op.j_orig), reps=200)
+    s_one = torch.ones((1, 1), dtype=torch.int8, device=dev)
+    floor_entry = energy_entry(s_one, inst.h[:1], inst.j[:1, :1].contiguous())
+    floor_ms = cuda_ms(floor_entry, reps=500)
+    dev_ms = device_ms(lambda: ops.ising_energy(s_main, inst.h, inst.j), reps=200)
+    floor_dev_ms = device_ms(floor_entry, reps=200)
+    plain_ms = cuda_ms(lambda: ie.ising_energy_plain(s_main, inst.h[None], inst.j), reps=50,
+                       warmup=1)
+    (b_ms, by) = bound_ms(*work("ising_energy", op.r_pad, op.n_pad, 0))
+    (u_ms, u_by) = bound_ms(*work("ising_energy", READS, n_real, 0, spin_bytes=1))
+    rows.append({
+        "name": "ising_energy", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ising_energy.cu",
+        "replaces": "src/repro/kernels/ising_energy.py:43", "launches": launches["ising_energy"],
+        "max_abs_err": errs["ising_energy"], "ms": ms, "ms_entry": entry_ms, "ms_twin": twin_ms,
+        "ms_floor": floor_ms, "ms_device": dev_ms, "ms_floor_device": floor_dev_ms,
+        "plain_ms": plain_ms, "library_ms": None,
+        **bounds("ising_energy", (b_ms, by), (u_ms, u_by)),
+    })
+    print(f"time ising_energy: {ms:.4f} ms through ops.ising_energy (R={READS}, n={n_real}, int8), "
+          f"{entry_ms:.4f} ms from its C entry, device {dev_ms:.5f} ms (profiler), tile-aligned "
+          f"twin {twin_ms:.4f} ms (R={op.r_pad}, N={op.n_pad}, float32), launch floor "
+          f"{floor_ms:.4f} ms (C entry, R=1, n=1; device {floor_dev_ms:.5f} ms), plain "
+          f"{plain_ms:.4f} ms, bound {u_ms:.6f} ms ({u_by}) at R={READS} n={n_real} int8, "
+          f"{b_ms:.6f} ms ({by}) at R={op.r_pad} N={op.n_pad} float32")
 
     # The batched kernels at the 16-document drain's shapes: the fused best
     # and the trajectory on its padded bins (B, R=8, 128 lanes, S slots),
@@ -1418,16 +1567,19 @@ def main() -> None:
         plain_ms = cuda_ms(plain, reps=20 if energy else 2, warmup=1)
         (b_ms, by), (u_ms, u_by) = (bound_ms(*batched_work(name, shapes)),
                                     bound_ms(*batched_work(name, job_shapes)))
+        extra = {"ms_device": device_ms(kern, reps=200)} if energy else {}
         rows.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{source}",
             "replaces": replaces, "launches": launches[name],
-            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms, "library_ms": None,
-            **bounds(name, (b_ms, by), (u_ms, u_by)),
+            "max_abs_err": errs[name], "ms": ms, **extra, "plain_ms": plain_ms,
+            "library_ms": None, **bounds(name, (b_ms, by), (u_ms, u_by)),
         })
-        print(f"time {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {b_ms:.6f} ms ({by}) at {len(shapes)} x (R={READS}, N=128, S={shapes[0][2]}), "
-              f"{u_ms:.6f} ms ({u_by}) at the {n_jobs} jobs' own n; steps={STEPS}")
+        print(f"time {name}: kernel {ms:.4f} ms"
+              + (f" (device {extra['ms_device']:.5f} ms, profiler)" if energy else "")
+              + f", plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms ({by}) at {len(shapes)} x "
+              f"(R={READS}, N=128, S={shapes[0][2]}), {u_ms:.6f} ms ({u_by}) at the {n_jobs} jobs' "
+              f"own n; steps={STEPS}")
 
     # The MCMC kernels at the main path's shape: the direct document's first
     # rounded instance (20 spins on 128 lanes), 8 replicas, 50 sweeps, sweep

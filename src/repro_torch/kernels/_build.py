@@ -38,9 +38,9 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _ARGTYPES = {
-    "ising_energy": {"ising_energy": [P, P, P, P, I, I, I, P]},
+    "ising_energy": {"ising_energy": [P, I, P, P, P, I, I, I, L, L, L, L, L, P]},
     "cobi_dynamics": {
         "cobi_trajectory": [P, P, P, P, I, I, I, I, F, F, P],
         "cobi_readout": [P, P, P, P, P, P, P, I, I, I, I, F, F, P],
@@ -146,5 +146,7 @@ def check(err: int, what: str) -> None:
 
 
 def stream_of(t: torch.Tensor) -> int:
-    """The current CUDA stream of ``t``'s device, as the C entries take it."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The current CUDA stream of ``t``'s device, as the C entries take it:
+    the raw handle, read the way PyTorch's generated kernels read it, without
+    building a ``torch.cuda.Stream`` (a few microseconds a launch)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())

@@ -4,22 +4,30 @@
 // density e_ri = s_ri * (s_r J)_i + h_i * s_ri, the same decomposition the
 // Pallas kernels use (kernels/cobi_dynamics.py:_slot_energies).  Every
 // kernel of the port that scores spins (ising_energy, cobi_readout,
-// cobi_fused_best) goes through these functions, so their energies agree bit
-// for bit on any instance, and on chip-range integer instances every partial
-// sum is an integer and the float32 result is exact.
+// cobi_fused_best) runs the same arithmetic: (s_r J)_i as an fmaf chain over
+// k ascending, then density() and row_sum() below; the COBI epilogues through
+// lane_energies(), the energy kernel through its own staging
+// (ising_energy.cu).  So their energies agree bit for bit on any instance,
+// and on chip-range integer instances every partial sum is an integer and the
+// float32 result is exact.
 #pragma once
 
 #include <cuda_runtime.h>
 
 namespace repro {
 
-constexpr int BR = 8;  // replica rows per thread block
+constexpr int BR = 8;  // the COBI entries take R in multiples of this
 
-// Per-lane energy densities of ROWS rows (BR in the energy kernel, an
-// anneal block's rows in the COBI epilogues).  One thread per lane i; `sp`
-// holds the rows' spins in shared memory (ROWS x n, row-major); `j` is the
-// (n x n) scoring matrix in global memory, read coalesced along i.  A row's
-// density does not depend on how many rows share the call.
+// A lane's energy density from its spin s, its (s J)_i and h_i.
+__device__ __forceinline__ float density(float s, float sj, float h_i) {
+  return __fadd_rn(__fmul_rn(s, sj), __fmul_rn(h_i, s));
+}
+
+// Per-lane energy densities of ROWS rows (an anneal block's rows in the COBI
+// epilogues).  One thread per lane i; `sp` holds the rows' spins in shared
+// memory (ROWS x n, row-major); `j` is the (n x n) scoring matrix in global
+// memory, read coalesced along i.  A row's density does not depend on how
+// many rows share the call.
 template <int ROWS>
 __device__ __forceinline__ void lane_energies(
     const float* __restrict__ sp, const float* __restrict__ j, float h_i,
@@ -43,8 +51,7 @@ __device__ __forceinline__ void lane_energies(
   }
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
-    const float s = sp[r * n + i];
-    e[r] = __fadd_rn(__fmul_rn(s, acc[r]), __fmul_rn(h_i, s));
+    e[r] = density(sp[r * n + i], acc[r], h_i);
   }
 }
 

@@ -6,13 +6,15 @@ the initial phases, and expose the functional API.  Dispatch follows the
 tensors' device: the kernel wrappers launch their CUDA kernel on a CUDA
 tensor (or raise) and run their plain version on a CPU tensor.
 
-The padding rules are the reference's exactly, at its default replica blocks
-(256 for the anneal, 512 for the energy): ``r_block = min(block, pad8(R))``
-and ``r_pad = pad(R, r_block)``.  The phases are drawn at
-``(r_pad, n_pad)`` with the reference's threefry stream, so the same key
-starts every anneal from the same phases bit for bit.  The MCMC anneal
-(:func:`mcmc_anneal`) pads the same way and draws its initial spins from
-the reference's counters at ``(r_pad, n_pad)``.
+The anneals' padding rules are the reference's exactly, at its default
+replica block of 256: ``r_block = min(256, pad8(R))`` and
+``r_pad = pad(R, r_block)``.  The phases are drawn at ``(r_pad, n_pad)``
+with the reference's threefry stream, so the same key starts every anneal
+from the same phases bit for bit.  The MCMC anneal (:func:`mcmc_anneal`)
+pads the same way and draws its initial spins from the reference's counters
+at ``(r_pad, n_pad)``.  The energy kernel takes its operands unpadded, so
+:func:`ising_energy` pads nothing: the reference's zero padding adds only
+exact zero terms.
 """
 
 from __future__ import annotations
@@ -46,8 +48,7 @@ from repro_torch.kernels.mcmc_dynamics import (
 )
 
 SLOT_PAD = 8  # slot axis of the fused readout is padded to this multiple
-ANNEAL_REPLICA_BLOCK = 256  # the reference's replica_block defaults
-ENERGY_REPLICA_BLOCK = 512
+ANNEAL_REPLICA_BLOCK = 256  # the reference's replica_block default
 
 
 def _pad_to(x: int, mult: int) -> int:
@@ -76,8 +77,8 @@ class AnnealOperands:
 
     j_scaled: torch.Tensor  # (n_pad, n_pad) dynamics couplings
     h_scaled: torch.Tensor  # (1, n_pad)
-    j_orig: torch.Tensor  # (n_pad, n_pad) scoring couplings, as given
-    h_orig: torch.Tensor  # (1, n_pad)
+    j_orig: torch.Tensor | None  # (n_pad, n_pad) scoring couplings, as given
+    h_orig: torch.Tensor | None  # (1, n_pad); both None unless scoring=True
     phi0: torch.Tensor  # (r_pad, n_pad) initial phases
     n_pad: int
     r_pad: int
@@ -90,11 +91,14 @@ def anneal_operands(
     *,
     replicas: int,
     prescaled: bool = False,
+    scoring: bool = True,
 ) -> AnnealOperands:
     """Scale, pad and draw the initial phases exactly as the reference does:
     ``r_block = min(256, pad8(R))``, ``r_pad = pad(R, r_block)``,
     phases ``uniform(key, (r_pad, n_pad), 0, 2 pi)`` on h's device.  The
-    scoring copies are the unscaled coefficients, zero-padded."""
+    scoring copies are the unscaled coefficients, zero-padded, for the
+    kernels that score inside the anneal launch; ``scoring=False`` skips
+    them (the energy kernel reads h and J unpadded)."""
     h32, j32 = h.to(torch.float32), j.to(torch.float32)
     if prescaled:
         h_s, j_s = h32, j32
@@ -109,8 +113,8 @@ def anneal_operands(
     return AnnealOperands(
         j_scaled=_padded(j_s, (n_pad, n_pad)),
         h_scaled=_padded(h_s[None], (1, n_pad)),
-        j_orig=_padded(j32, (n_pad, n_pad)),
-        h_orig=_padded(h32[None], (1, n_pad)),
+        j_orig=_padded(j32, (n_pad, n_pad)) if scoring else None,
+        h_orig=_padded(h32[None], (1, n_pad)) if scoring else None,
         phi0=phi0,
         n_pad=n_pad,
         r_pad=r_pad,
@@ -146,7 +150,7 @@ def cobi_anneal(
     ``reduce`` selects the readout (all score against the *given* problem):
 
       * ``"none"`` -- (spins (R, N) int8, energies (R,)): anneal, then a
-        separate energy launch;
+        separate energy launch on the int8 spins and the unpadded h, J;
       * ``"best"`` -- (spins (N,) int8, energy ()): one fused launch, equal to
         ``"none"`` + first argmin;
       * ``"topk"`` -- (spins (k, N) int8, energies (k,) ascending, stable);
@@ -156,7 +160,8 @@ def cobi_anneal(
     """
     if reduce not in ("none", "best", "topk"):
         raise ValueError(f"unknown reduce mode {reduce!r}")
-    op = anneal_operands(h, j, key, replicas=replicas, prescaled=prescaled)
+    op = anneal_operands(h, j, key, replicas=replicas, prescaled=prescaled,
+                         scoring=reduce != "none")
     n = h.shape[-1]
     anneal = dict(steps=steps, dt=dt, ks_max=ks_max)
     jp, hp, ju, hu, phi0 = op.j_scaled, op.h_scaled, op.j_orig, op.h_orig, op.phi0
@@ -189,34 +194,15 @@ def ising_energy(
         (R,) / scalar float32;
       * (B, R, N) spins against a stack ``h (B, N), j (B, N, N)`` -> (B, R),
         in one launch (the chip farm's scoring).
+
+    One kernel launch on the operands as given (int8 or float32 spins, no
+    padding copy); the reference's padding adds only exact zero terms.
     """
     if spins.ndim == 3:
-        return _ising_energy_stacked(spins, h, j)
+        return ising_energy_batched_cuda(spins, h[:, None], j)
     squeeze = spins.ndim == 1
-    if squeeze:
-        spins = spins[None]
-    r, n = spins.shape
-    n_pad = _pad_to(max(n, LANE), LANE)
-    r_block = min(ENERGY_REPLICA_BLOCK, _pad_to(r, 8))
-    r_pad = _pad_to(r, r_block)
-    sp = _padded(spins, (r_pad, n_pad))
-    hp = _padded(h[None], (1, n_pad))
-    jp = _padded(j, (n_pad, n_pad))
-    e = ising_energy_cuda(sp, hp, jp)[:r]
+    e = ising_energy_cuda(spins[None] if squeeze else spins, h[None], j)
     return e[0] if squeeze else e
-
-
-def _ising_energy_stacked(spins: torch.Tensor, h: torch.Tensor, j: torch.Tensor) -> torch.Tensor:
-    b, r, n = spins.shape
-    if h.shape != (b, n) or j.shape != (b, n, n):
-        raise ValueError(f"stacked energy shapes: spins {spins.shape}, h {h.shape}, j {j.shape}")
-    n_pad = _pad_to(max(n, LANE), LANE)
-    r_block = min(ENERGY_REPLICA_BLOCK, _pad_to(r, 8))
-    r_pad = _pad_to(r, r_block)
-    sp = _padded(spins, (b, r_pad, n_pad))
-    hp = _padded(h[:, None], (b, 1, n_pad))
-    jp = _padded(j, (b, n_pad, n_pad))
-    return ising_energy_batched_cuda(sp, hp, jp)[:, :r]
 
 
 # ---------------------------------------------------------------------------

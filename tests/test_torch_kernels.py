@@ -163,16 +163,131 @@ def test_packed_bin_equals_solo_on_card(card):
         assert torch.equal(packed[0, :, lanes], solo[:, :n])
 
 
-@pytest.mark.parametrize("n,r", [(8, 4), (59, 33), (128, 256), (200, 17)])
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 7, 20, 59, 128, 129, 200, 1024])
+def test_ising_energy_kernel_matches_plain_on_card(card, n):
+    """The energy kernel bit for bit its plain version on chip-range integer
+    instances: R 1 to 1024, B 1 and 3, int8 and float32 spins, and the live
+    corner of zero-padded operands read in place at their row strides."""
+    for r in (1, 8, 17, 256, 1024):
+        hs, js = zip(*(_instance(31 * b + n + r, n) for b in range(3)))
+        h, j = (torch.from_numpy(np.stack(a)).to(card) for a in (hs, js))
+        spins = torch.from_numpy(_spins(n + r, 3, r, n)).to(card)
+        want = tenergy.ising_energy_batched_plain(spins, h[:, None], j)
+        for s in (spins, spins.float()):
+            assert torch.equal(tenergy.ising_energy_batched_cuda(s, h[:, None], j), want)
+            assert torch.equal(tenergy.ising_energy_cuda(s[1], h[1:2], j[1]), want[1])
+        sp = torch.zeros((r, n + 5), dtype=torch.int8, device=card)
+        jp = torch.zeros((n + 5, n + 5), device=card)
+        sp[:, :n], jp[:n, :n] = spins[0], j[0]
+        assert torch.equal(tops.ising_energy(sp[:, :n], h[0], jp[:n, :n]), want[0])
+
+
+def _float_instance(seed, n, card):
+    """A non-integer float32 instance (h, J) on the card."""
+    rng = np.random.default_rng(seed)
+    j = rng.normal(size=(n, n)).astype(np.float32)
+    return (torch.from_numpy(rng.normal(size=n).astype(np.float32)).to(card),
+            torch.from_numpy((j + j.T) / np.float32(2)).to(card))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,reads", [(20, 8), (100, 64), (128, 8)])
+def test_ising_energy_kernel_matches_readout_epilogue_on_card(card, n, reads):
+    """On non-integer instances the energy kernel gives the COBI readout
+    epilogue's energies bit for bit: the same fmaf chain, density and row
+    sum, over the live lanes where the epilogue runs them over 128."""
+    h, j = _float_instance(n, n, card)
+    op = tops.anneal_operands(h, j, tprng.key(n), replicas=reads)
+    spins, energies = tcobi.cobi_readout_cuda(op.j_scaled, op.h_scaled, op.j_orig, op.h_orig,
+                                              op.phi0, steps=100, dt=0.35, ks_max=1.2)
+    live, want = spins[:reads, :n], energies[:reads]
+    assert not torch.equal(want, want.round())  # not an integer instance
+    for s in (live, live.contiguous(), live.to(torch.int8)):
+        assert torch.equal(tops.ising_energy(s, h, j), want)
+    assert torch.equal(tenergy.ising_energy_cuda(live, op.h_orig[:, :n], op.j_orig[:n, :n]), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [20, 77])
+def test_tile_aligned_twin_equals_unpadded_call_on_card(card, n):
+    """ising_energy_cuda on tile-aligned zero-padded operands (R 8, N 128)
+    equals ops.ising_energy on the live corner bit for bit, on integer and
+    non-integer instances: the padding adds exact zero terms."""
+    for h, j in (_t(*_instance(n, n)), _float_instance(n, n, card)):
+        h, j = h.to(card), j.to(card)
+        spins = torch.from_numpy(_spins(n, 8, n)).to(card)
+        sp = torch.zeros((8, 128), device=card)
+        hp = torch.zeros((1, 128), device=card)
+        jp = torch.zeros((128, 128), device=card)
+        sp[:, :n], hp[0, :n], jp[:n, :n] = spins, h, j
+        assert torch.equal(tenergy.ising_energy_cuda(sp, hp, jp), tops.ising_energy(spins, h, j))
+
+
+ENERGY_LANES = (1, 7, 20, 59, 128, 129, 200)
+ENERGY_ROWS = (1, 8, 17, 256)
+ENERGY_CASES = sorted({(n, r) for n in ENERGY_LANES for r in ENERGY_ROWS}
+                      | {(8, 4), (59, 33)})
+
+
+def _spins(seed, *shape):
+    return np.where(np.random.default_rng(seed).random(shape) < 0.5, 1, -1).astype(np.int8)
+
+
+@pytest.mark.parametrize("n,r", ENERGY_CASES)
 def test_ising_energy_matches_exactly(n, r):
+    """ops.ising_energy on unpadded operands, int8 and float32 spins and
+    one 1-D row, bit for bit the JAX package's (which pads to its tiles)."""
     h, j = _instance(n + r, n)
-    spins = np.where(np.random.default_rng(r).random((r, n)) < 0.5, 1, -1).astype(np.int8)
+    spins = _spins(r, r, n)
     want = np.asarray(jops.ising_energy(jnp.asarray(spins), jnp.asarray(h), jnp.asarray(j)))
-    got = tops.ising_energy(*_t(spins, h, j))
-    np.testing.assert_array_equal(got.numpy(), want)
-    np.testing.assert_array_equal(
-        tops.ising_energy(*_t(spins[0], h, j)).numpy(), want[0]
-    )
+    for s in (spins, spins.astype(np.float32)):
+        np.testing.assert_array_equal(tops.ising_energy(*_t(s, h, j)).numpy(), want)
+        np.testing.assert_array_equal(tops.ising_energy(*_t(s[0], h, j)).numpy(), want[0])
+
+
+@pytest.mark.parametrize("n,r", [(20, 8), (129, 17)])
+def test_stacked_ising_energy_matches_exactly(n, r):
+    """(B, R, n) spins against a stack of three instances, int8 and float32."""
+    hs, js = zip(*(_instance(7 * b + n, n) for b in range(3)))
+    h, j = np.stack(hs), np.stack(js)
+    spins = _spins(n, 3, r, n)
+    want = np.asarray(jops.ising_energy(jnp.asarray(spins), jnp.asarray(h), jnp.asarray(j)))
+    assert want.shape == (3, r)
+    for s in (spins, spins.astype(np.float32)):
+        np.testing.assert_array_equal(tops.ising_energy(*_t(s, h, j)).numpy(), want)
+
+
+def test_energy_path_pads_nothing(monkeypatch):
+    """ops.ising_energy (solo, 1-D and stacked) never pads, and
+    cobi_anneal(reduce="none") pads only its dynamics operands: neither the
+    spins nor the given h and J, which it scores unpadded."""
+    h, j, key = _anneal_pair(20, 8)
+    spins = torch.from_numpy(_spins(3, 8, 20))
+    want = tref.ref_ising_energy(spins, h, j)
+    real = tops._padded
+
+    def refuse(x, shape):
+        raise AssertionError(f"the energy path padded a {tuple(x.shape)} {x.dtype} tensor")
+
+    monkeypatch.setattr(tops, "_padded", refuse)
+    assert torch.equal(tops.ising_energy(spins, h, j), want)
+    assert torch.equal(tops.ising_energy(spins[2], h, j), want[2])
+    e3 = tops.ising_energy(torch.stack([spins] * 3), torch.stack([h] * 3), torch.stack([j] * 3))
+    assert torch.equal(e3, torch.stack([want] * 3))
+
+    padded = []
+
+    def dynamics_only(x, shape):
+        if x is h or x is j or x.dtype == torch.int8:
+            refuse(x, shape)
+        padded.append(tuple(shape))
+        return real(x, shape)
+
+    monkeypatch.setattr(tops, "_padded", dynamics_only)
+    s, e = tops.cobi_anneal(h, j, key, replicas=8, steps=20)
+    assert padded == [(128, 128), (1, 128)]  # j_scaled and h_scaled
+    assert s.dtype == torch.int8 and torch.equal(e, tref.ref_ising_energy(s, h, j))
 
 
 def test_ising_energy_wrapper_matches_pallas_tile():
