@@ -98,6 +98,23 @@ Phases, each of which must pass or the script exits non-zero:
      bit-identical), and the 2048 bucket's pass under torch.profiler,
      its device time split into flash (by kernel name, both routes),
      GEMMs and the rest, and the device's idle share;
+  4f. the serving engine, the system's front door: ``python -m
+     repro_torch.launch.serve --requests 8 --workload mixed`` in a
+     subprocess (exit 0); ``SummarizationEngine(SolveConfig(iterations=6),
+     n_chips=4, seed=0, score_against_exact=True)`` on the farm mix's 16
+     documents and the 100-sentence document (m 6, decomposed), every
+     response bit for bit equal to its inline ``solve_es`` keyed
+     ``fold_in(key(0), request_id)``, the decomposed one above 0.8
+     normalized against its Tabu bounds; then 20 batches of the same 17,
+     warm and unscored, one after another, for requests/s and p50/p99
+     latency over all 340 (each response equal to the scored one); the
+     MCMC engine on the 16 documents, each equal to its inline solve; the
+     16 documents routed with ``benchmarks/CALIBRATION_cobi_pool.json``
+     under a deadline that spills onto the host pool, each response equal
+     to the farm's, with ``backend_used`` counts; Tabu and SA on the direct
+     document, 3 iterations, the card against the CPU on the same rounded
+     instances and through ``solve_es`` (Tabu bit for bit), their time a
+     solve, and the ``reference_bounds`` Tabu fallback at N 100, M 6;
   5. time every kernel, its plain version and its bound (at the padded
      shapes the reference's kernels take, and at the instances' own n spins
      and reads; a COBI anneal row's bound_ms is the latter, since its loop
@@ -126,6 +143,7 @@ import argparse
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -151,6 +169,17 @@ FARM_SIZES = [10, 14, 18, 22, 26, 30, 34, 38, 12, 16, 20, 24, 28, 32, 36, 40]
 FARM_ITERATIONS = 6
 ENCODER_MAX_SIZE = 26  # the farm mix's documents that fit 2048 byte tokens
 ENCODER_LINGER = 0.05  # seconds the stage waits to batch after a first job
+# The routed serve run: every farm-mix request carries this deadline (sim
+# seconds), so the farm's admitted queue outgrows it after about 15
+# requests and the router spills onto the host pool (one request, with the
+# checked-in cobi_pool profile at 400 steps).
+ROUTE_DEADLINE = 0.03
+# Iterations of the host solvers' card-against-CPU check (Tabu and SA are
+# host-bound loops: tools/solver_profile.py times them).
+HOST_SOLVER_ITERATIONS = 3
+# Batches of the 17 requests in the timed serve window: a rate and a p99
+# over some hundreds of requests.
+SERVE_WINDOW = 20
 MCMC_SWEEPS = 50  # SolveConfig's 400 steps at 8 steps a sweep
 # SolveConfig(solver="mcmc") on synthetic_document(7, 20), m = 6, key 0:
 # the JAX package's selection on the CPU.
@@ -277,12 +306,242 @@ def packed_operands(instances, keys, reads, dev):
             "mask": t(mask), "reads": t(rd[:, None]), "phi0": t(phi0)}, slots
 
 
+def percentile(xs, q: float) -> float:
+    """The q-quantile of xs by linear interpolation (numpy's default)."""
+    return float(np.percentile(np.asarray(xs, np.float64), 100 * q))
+
+
+def serve_phase(dev, reset_counts, counts, launches, problem, key) -> None:
+    """Phase 4f: the serving engine end to end on the card.
+
+    (1) The serve launcher as a user runs it, in a subprocess: 8 requests
+    of the mixed workload, exit 0.  (2) ``SummarizationEngine`` (6
+    iterations, ``CobiFarm(4)``, seed 0, scored) on the farm mix's 16
+    documents (m 5) and the 100-sentence document (m 6, decomposed): every
+    response equals its inline ``solve_es`` keyed ``fold_in(key(0), rid)``
+    on the card, bit for bit, and the decomposed one clears the 0.8 bar
+    against its Tabu bounds; then ``SERVE_WINDOW`` batches of the same
+    requests, unscored and warm, one after another, for requests per second
+    and latency quantiles over all of them; and the MCMC engine on the 16
+    documents against its inline solves.  (3) The 16 documents routed with
+    the checked-in cobi_pool profile under a deadline that spills the
+    farm's queue onto the host pool: every response, spilled or not, equals
+    (2)'s.  (4) Tabu and SA on the direct document, ``HOST_SOLVER_ITERATIONS``
+    iterations: the card against the CPU on the same rounded instances and
+    through ``solve_es`` (Tabu bit for bit), their time a solve at N 20,
+    and the Tabu fallback of ``reference_bounds`` at N 100, M 6.
+    """
+    import torch
+
+    def sync() -> None:
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    from repro_torch import prng
+    from repro_torch.core import SolveConfig, solve_es
+    from repro_torch.core import metrics, pipeline
+    from repro_torch.core.formulation import IsingProblem
+    from repro_torch.data.synthetic import synthetic_document
+    from repro_torch.embeddings import HashedBowEncoder
+    from repro_torch.serving import AdmissionConfig, SummarizationEngine, SummarizeRequest
+    from repro_torch.serving import api as serve_api
+    from repro_torch.solvers import ising_solver
+
+    # (1) the launcher
+    n_req = 8
+    args = ["--requests", str(n_req), "--workload", "mixed", "--device", dev.type]
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", *args],
+                         cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                         capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    for line in run.stdout.splitlines():
+        print(f"  serve: {line}")
+    if run.returncode != 0:
+        fail(f"python -m repro_torch.launch.serve {' '.join(args)} exited "
+             f"{run.returncode}: {run.stderr[-2000:]}")
+    n_resp = sum(line.startswith("req ") for line in run.stdout.splitlines())
+    print(f"serve launcher ({' '.join(args)}): exit 0, {n_resp} responses, process wall "
+          f"{wall:.3f} s")
+    if n_resp != n_req:
+        fail(f"the serve launcher answered {n_resp} of {n_req} requests")
+
+    # (2) the engine against its inline solves
+    cfg = SolveConfig(iterations=FARM_ITERATIONS)
+    docs = [(synthetic_document(100 + i, n), 5) for i, n in enumerate(FARM_SIZES)]
+    docs.append((synthetic_document(11, 100), 6))
+    # Explicit ids 1..17: a batch served again keeps them (and so its keys).
+    reqs = [SummarizeRequest(text=" ".join(d), m=m, request_id=i + 1)
+            for i, (d, m) in enumerate(docs)]
+    reset_counts()
+    t0 = time.perf_counter()
+    with SummarizationEngine(cfg, n_chips=4, seed=0, score_against_exact=True,
+                             device=dev) as eng:
+        served = eng.run_batch(reqs, seed=0)
+        drains = eng.farm.stats().drains
+    wall = time.perf_counter() - t0
+    c = counts()
+    for name in launches:
+        launches[name] += c[name]
+    print(f"serve engine (17 requests, scored): wall {wall:.3f} s, {drains} drains, "
+          f"launches {c}")
+    if c["cobi_fused_best_batched"] == 0:
+        fail("the served farm never launched cobi_fused_best_batched")
+    enc = HashedBowEncoder()
+    for resp, req in zip(served, reqs):
+        sel = eng._to_selection(req)
+        prob = serve_api.problem_from_spec(sel.kofn, sel.items, encoder=enc, device=dev)
+        c_in = dataclasses.replace(cfg, decompose=prob.n > 59)
+        want = solve_es(prob, prng.fold_in(prng.key(0), resp.request_id), c_in, device=dev)
+        if not (np.array_equal(resp.selection, want.selection)
+                and resp.objective == want.objective):
+            fail(f"served request {resp.request_id} (N={prob.n}) != its inline solve: "
+                 f"{resp.selection.nonzero()[0].tolist()} {resp.objective} against "
+                 f"{want.selection.nonzero()[0].tolist()} {want.objective}")
+        if resp.normalized is None or not math.isfinite(resp.normalized):
+            fail(f"served request {resp.request_id} carries no normalized objective")
+    big = served[-1]
+    print(f"serve engine: all 17 responses == their inline solves (fold_in keys) bitwise; "
+          f"normalized objectives min {min(r.normalized for r in served[:-1]):.6f} over the "
+          f"farm mix; decomposed N=100 M=6: selected {big.selection.nonzero()[0].tolist()} "
+          f"objective {big.objective:.6f} normalized {big.normalized:.6f} (Tabu bounds)")
+    if big.normalized <= 0.8:
+        fail(f"decomposed normalized objective {big.normalized} <= 0.8")
+
+    # The served rate and latency: a window of SERVE_WINDOW batches of the
+    # 17 requests, one after another (a client with 17 requests in flight).
+    # Each batch keeps ids 1..17, so every response of the window must
+    # equal the scored run's.
+    reset_counts()
+    with SummarizationEngine(cfg, n_chips=4, seed=0, device=dev) as eng:
+        eng.run_batch(reqs, seed=0)  # warm
+        window, batch_walls = [], []
+        t0 = time.perf_counter()
+        for _ in range(SERVE_WINDOW):
+            tb = time.perf_counter()
+            window.append(eng.run_batch(reqs, seed=0))
+            batch_walls.append(time.perf_counter() - tb)
+        wall = time.perf_counter() - t0
+    c = counts()
+    for name in launches:
+        launches[name] += c[name]
+    lat = [r.wall_seconds for batch in window for r in batch]
+    rates = [len(reqs) / w for w in batch_walls]
+    print(f"serve engine window ({SERVE_WINDOW} batches x 17 requests, warm, unscored): "
+          f"{len(lat)} requests in {wall:.4f} s, {len(lat) / wall:.3f} requests/s (batches "
+          f"{min(rates):.3f} to {max(rates):.3f}), latency over all {len(lat)}: p50 "
+          f"{percentile(lat, 0.5):.4f} s p99 {percentile(lat, 0.99):.4f} s max {max(lat):.4f} s "
+          f"(farm mix alone p50 {percentile([r.wall_seconds for b in window for r in b[:-1]], 0.5):.4f} s), "
+          f"launches {c} [{card_line()}]")
+    if any(not (np.array_equal(a.selection, b.selection) and a.objective == b.objective)
+           for batch in window for a, b in zip(batch, served)):
+        fail("a response of the timed window differs from the scored run's")
+
+    # (2b) the MCMC family served: the engine builds McmcPoolBackend(4)
+    mcfg = SolveConfig(solver="mcmc", iterations=FARM_ITERATIONS)
+    reset_counts()
+    t0 = time.perf_counter()
+    with SummarizationEngine(mcfg, seed=0, device=dev) as eng:
+        bank = type(eng.backend).__name__
+        mserved = eng.run_batch(reqs[:-1], seed=0)
+    wall = time.perf_counter() - t0
+    c = counts()
+    for name in launches:
+        launches[name] += c[name]
+    print(f"serve engine mcmc (16 requests through {bank}; a check, not a rate): wall "
+          f"{wall:.4f} s, launches {c}")
+    if bank != "McmcPoolBackend" or c["mcmc_fused_best_batched"] == 0:
+        fail(f"the mcmc engine served through {bank} with launches {c}")
+    for resp, req in zip(mserved, reqs):
+        sel = eng._to_selection(req)
+        prob = serve_api.problem_from_spec(sel.kofn, sel.items, encoder=enc, device=dev)
+        want = solve_es(prob, prng.fold_in(prng.key(0), resp.request_id), mcfg, device=dev)
+        if not (np.array_equal(resp.selection, want.selection)
+                and resp.objective == want.objective):
+            fail(f"mcmc-served request {resp.request_id} != its inline solve")
+    print("serve engine mcmc: all 16 responses == their inline solves bitwise")
+
+    # (3) routed: the farm's queue spills onto the host pool (one batch: a
+    # check of the spill, not a rate)
+    reset_counts()
+    profile = ROOT / "benchmarks" / "CALIBRATION_cobi_pool.json"
+    t0 = time.perf_counter()
+    with SummarizationEngine(cfg, n_chips=4, seed=0, routing=True, profile=str(profile),
+                             admission=AdmissionConfig(max_queue_depth=len(FARM_SIZES)),
+                             device=dev) as eng:
+        routed = eng.run_batch([dataclasses.replace(r, deadline=ROUTE_DEADLINE)
+                                for r in reqs[:-1]], seed=0)
+        stats = eng.router.stats()
+    wall = time.perf_counter() - t0
+    c = counts()
+    for name in launches:
+        launches[name] += c[name]
+    used: dict = {}
+    for r in routed:
+        used[r.backend_used] = used.get(r.backend_used, 0) + 1
+    print(f"serve routed (16 requests, deadline {ROUTE_DEADLINE} s, cobi_pool profile; a check, "
+          f"not a rate): backend_used {used}, router {stats}, wall {wall:.4f} s, launches {c}")
+    if not used.get("pool"):
+        fail("the routed run spilled nothing onto the pool")
+    for r, s in zip(routed, served):
+        if not (np.array_equal(r.selection, s.selection) and r.objective == s.objective):
+            fail(f"routed request {r.request_id} (via {r.backend_used}) != its farm solve")
+    print(f"serve routed: all 16 responses ({used['pool']} spilled) == the farm's bitwise")
+
+    # (4) the host solvers on the card
+    reset_counts()  # comparisons, not the main path
+    ising_fp = pipeline._build_ising(problem, cfg)
+    cpu_fp = pipeline._build_ising(problem.to("cpu"), cfg)
+    for name in ("tabu", "sa"):
+        scfg = SolveConfig(solver=name, iterations=HOST_SOLVER_ITERATIONS)
+        solver = ising_solver(name)
+        flips, times = [], []
+        same_instances = True
+        for kq, ks in pipeline._iteration_keys(key, HOST_SOLVER_ITERATIONS):
+            q = pipeline._quantized_instance(ising_fp, scfg, kq)
+            q_cpu = pipeline._quantized_instance(cpu_fp, scfg, kq)
+            same_instances &= bool(torch.equal(q.h.cpu(), q_cpu.h) and torch.equal(q.j.cpu(), q_cpu.j))
+            sync()
+            t0 = time.perf_counter()
+            got = solver(q, ks, reads=READS)
+            sync()
+            times.append(time.perf_counter() - t0)
+            want = solver(IsingProblem(h=q.h.cpu(), j=q.j.cpu()), ks, reads=READS)
+            if not (torch.equal(got.spins.cpu(), want.spins)
+                    and torch.equal(got.energies.cpu(), want.energies)):
+                if name == "tabu":
+                    fail("tabu on the card != tabu on the CPU on the same integer instance")
+                flips.append(int((got.spins.cpu() != want.spins).any(-1).sum()))
+        rep = solve_es(problem, key, scfg, device=dev)
+        rep_cpu = solve_es(problem.to("cpu"), key, scfg, device="cpu")
+        same = (np.array_equal(rep.selection, rep_cpu.selection)
+                and rep.objective == rep_cpu.objective)
+        print(f"{name} on the card (N={problem.n}, {READS} reads, {len(times)} solves): "
+              f"{percentile(times, 0.5) * 1e3:.3f} ms a solve (median; min "
+              f"{min(times) * 1e3:.3f} ms); card == CPU on the same instances: "
+              f"{'yes' if not flips else f'no, replicas differing {flips}'}; solve_es "
+              f"selection card {rep.selection.nonzero()[0].tolist()} CPU "
+              f"{rep_cpu.selection.nonzero()[0].tolist()} (rounded instances equal: "
+              f"{same_instances})")
+        if name == "tabu" and same_instances and not same:
+            fail("solve_es(solver='tabu') on the card != on the CPU")
+    big_prob = serve_api.problem_from_spec(serve_api.KofnSpec(m=6, lam=0.5), docs[-1][0],
+                                           encoder=enc, device=dev)
+    sync()
+    t0 = time.perf_counter()
+    bounds = metrics.reference_bounds(big_prob)
+    wall = time.perf_counter() - t0
+    print(f"reference_bounds N={big_prob.n} M=6 (Tabu fallback, 32 replicas x 3000 steps, "
+          f"twice) on the card: {wall:.3f} s, {bounds} [{card_line()}]")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--save-embeddings", metavar="PATH",
                     help="write the card's flash-path embeddings of the direct document and "
                          "farm1 (float32) to this .npz")
     args = ap.parse_args()
+    t_start = time.perf_counter()
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         fail("src/repro_torch is not beside chip_smoke.py: run it from the repository")
     import torch
@@ -1427,6 +1686,11 @@ def main() -> None:
               + "; ".join(f"{n[:60]} {us / 1e3:.3f}" for n, us in top))
     del enc_paths, flash_embs, passes
 
+    # ------------------------------------------------------------ 4f. the serving engine
+    t_phase = time.perf_counter()
+    serve_phase(dev, reset_counts, counts, launches, problem, key)
+    print(f"serve phase wall: {time.perf_counter() - t_phase:.1f} s")
+
     # ------------------------------------------------------------ 5. timing
     op, mask, rd = operands(READS, k_solve)
     full = dict(steps=STEPS, dt=0.35, ks_max=1.2)
@@ -1709,6 +1973,7 @@ def main() -> None:
               f"{u_ms:.6f} ms ({u_by}) at N={inst.n}")
 
     # ------------------------------------------------------------ 6. result
+    print(f"smoke wall: {time.perf_counter() - t_start:.1f} s, the kernels' builds included")
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

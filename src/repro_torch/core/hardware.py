@@ -1,7 +1,7 @@
 """Hardware cost models (paper Sec. V): the per-solve time and power that
 TTS/ETS use, the COBI chip's (which bills the chip farm's receipts), the
-CMOS MCMC annealer's (which bills the MCMC bank's), and the brute-force CPU
-baseline's model.
+CMOS MCMC annealer's (which bills the MCMC bank's), and the Tabu and
+brute-force CPU baselines' models.
 
 COBI constants are the paper's: ~200 us per anneal at 25 mW, and 18.9 us of
 host objective evaluation per stochastic-rounding iteration at 20 W.
@@ -36,6 +36,16 @@ MCMC_CMOS = SolverHardware(
     name="mcmc",
     seconds_per_solve=50e-6,
     solver_power_w=15e-3,
+    host_eval_seconds=18.9e-6,
+    host_power_w=20.0,
+)
+
+# Tabu on the host CPU: the software baseline's per-solve time and power,
+# which bill the host pools' solves when no receipt meters them.
+TABU_CPU = SolverHardware(
+    name="tabu",
+    seconds_per_solve=25e-3,
+    solver_power_w=20.0,
     host_eval_seconds=18.9e-6,
     host_power_w=20.0,
 )

@@ -9,7 +9,8 @@ asks for it, on the CPU with the kernels' plain versions.  Greedy repair and
 the best-of reduce run in host numpy, as in the reference.
 
 The generator drivers at the bottom of this module run against any
-:class:`repro_torch.solvers.base.SolverBackend` (the COBI chip farm):
+:class:`repro_torch.solvers.base.SolverBackend` (the COBI chip farm, the
+MCMC annealer bank or a host thread pool):
 iterations submit as jobs, a driver interleaves many requests' rounds, and
 futures reduce back into a :class:`SolveReport` that carries the backend's
 receipt accounting (chip time, energy, attributed host<->device bytes,
@@ -38,13 +39,14 @@ from repro_torch.core.rounding import COBI_RANGE, quantize_ising, quantize_ising
 from repro_torch.device import resolve_device
 from repro_torch.solvers import base as solver_base
 from repro_torch.solvers import brute as brute_solver
+from repro_torch.solvers import random_baseline
 
 
 @dataclasses.dataclass(frozen=True)
 class SolveConfig:
     """Knobs of the hardware-aware ES pipeline."""
 
-    solver: str = "cobi"  # cobi | mcmc | brute | exact
+    solver: str = "cobi"  # cobi | tabu | sa | mcmc | brute | random | exact
     formulation: str = "improved"  # improved | original
     rounding: str = "stochastic"  # deterministic | stochastic_5050 | stochastic
     int_range: Optional[int] = COBI_RANGE  # None -> no quantization (FP solve)
@@ -274,8 +276,12 @@ def solve_es(
     if cfg.solver == "exact":
         obj, x, _, _ = brute_solver.exact_constrained_bounds(problem)
         return SolveReport(x.astype(np.int32), obj, np.array([obj]), 1)
-    if cfg.solver in solver_base.NOT_PORTED:
-        raise solver_base.not_ported(cfg.solver)
+    if cfg.solver == "random":
+        best_x, objs = random_baseline.solve(problem, key, cfg.iterations)
+        curve = np.maximum.accumulate(objs.cpu().numpy())
+        return SolveReport(
+            best_x.cpu().numpy().astype(np.int32), float(curve[-1]), curve, cfg.iterations
+        )
 
     ising_fp = _build_ising(problem, cfg)
     solve = solver_base.ising_solver(cfg.solver)

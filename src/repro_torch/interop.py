@@ -2,11 +2,13 @@
 
 What crosses: PRNG keys, as the raw ``(2,)`` uint32 words of
 ``jax.random.key_data(key)``; problem instances (``EsProblem``'s mu, beta,
-m, lam and ``IsingProblem``'s h, J) as numpy arrays; and the encoder
+m, lam and ``IsingProblem``'s h, J) as numpy arrays; the encoder
 backbone's weights, the reference's ``init_params`` tree as nested dicts of
-numpy arrays.  :func:`carry_across` turns them into the port's objects, so a
-test can hand the same state to both packages.  Nothing here imports JAX:
-the caller converts to numpy on its side.
+numpy arrays; a serving ``CalibrationProfile`` as its JSON text; and
+serving ``SelectionRequest``s as ``dataclasses.asdict`` dicts.
+:func:`carry_across` turns them into the port's objects, so a test can hand
+the same state to both packages.  Nothing here imports JAX: the caller
+converts to numpy, text or dicts on its side.
 """
 
 from __future__ import annotations
@@ -27,10 +29,16 @@ def carry_across(kind: str, *arrays, device=None, **fields):
       * ``carry_across("ising", h, j)`` -> :class:`IsingProblem`;
       * ``carry_across("params", tree, cfg=...)`` -> the port's
         ``models.Model`` (one module per layer of the stacked tree; leaves
-        cast to ``cfg.dtype``).
+        cast to ``cfg.dtype``);
+      * ``carry_across("profile", json_text)`` -> the port's
+        ``serving.CalibrationProfile`` (the reference's ``to_json()``);
+      * ``carry_across("requests", dicts)`` -> a list of the port's
+        ``serving.SelectionRequest`` (each the reference request's
+        ``dataclasses.asdict``, its ``kofn`` a nested dict).
 
-    Keys live on the CPU, like every key of the port; problems and models
-    go to ``device`` (``None``: the card; raises without one).
+    Keys live on the CPU, like every key of the port, and so do profiles
+    and requests (plain data); problems and models go to ``device``
+    (``None``: the card; raises without one).
     """
     if kind == "key":
         (words,) = arrays
@@ -38,6 +46,16 @@ def carry_across(kind: str, *arrays, device=None, **fields):
         if words.shape != (2,):
             raise ValueError(f"a key is two uint32 words, got shape {words.shape}")
         return torch.tensor(words.astype(np.uint32).astype(np.int64))
+    if kind == "profile":
+        from repro_torch.serving.calibration import CalibrationProfile
+
+        (text,) = arrays
+        return CalibrationProfile.from_json(text)
+    if kind == "requests":
+        from repro_torch.serving.api import KofnSpec, SelectionRequest
+
+        (dicts,) = arrays
+        return [SelectionRequest(**{**d, "kofn": KofnSpec(**d["kofn"])}) for d in dicts]
     device = resolve_device(device)
     if kind == "params":
         (tree,) = arrays
@@ -51,4 +69,5 @@ def carry_across(kind: str, *arrays, device=None, **fields):
     if kind == "ising":
         h, j = tensors
         return IsingProblem(h=h, j=j)
-    raise ValueError(f"unknown state kind {kind!r}; want 'key', 'es', 'ising' or 'params'")
+    raise ValueError(f"unknown state kind {kind!r}; want 'key', 'es', 'ising', 'params', "
+                     "'profile' or 'requests'")

@@ -4,11 +4,12 @@
 Every solver consumes an :class:`repro_torch.core.formulation.IsingProblem`
 and returns a :class:`SolverResult`.  Two call surfaces build on that:
 
-* **Registry** -- :func:`ising_solver` maps a solver name to a uniform
-  callable ``solve(ising, key, *, reads, steps, check, reduce)``, so the
-  pipeline's per-iteration invoke needs no per-solver branching.  The port
-  registers ``cobi``, ``mcmc`` and ``brute``; the reference's other names
-  raise an error that names the ROADMAP item which ports them.
+* **Registry** -- :func:`ising_solver` maps a solver name (``"cobi"``,
+  ``"tabu"``, ``"sa"``, ``"mcmc"``, ``"brute"``: the reference's five) to a
+  uniform callable ``solve(ising, key, *, reads, steps, check, reduce)``, so
+  the pipeline's per-iteration invoke needs no per-solver branching;
+  solvers that ignore a knob (tabu has no anneal ``steps``) accept and drop
+  it.
 
 * **Backend protocol** -- :class:`SolverBackend` is the continuous serving
   surface: ``submit()`` enqueues one job and returns a :class:`SolverFuture`
@@ -68,31 +69,18 @@ class SolverResult:
 # Solver name -> (module, attr) of the uniform Ising entry point.
 _ISING_SOLVERS = {
     "cobi": ("repro_torch.solvers.cobi", "solve"),
+    "tabu": ("repro_torch.solvers.tabu", "solve_ising"),
+    "sa": ("repro_torch.solvers.sa", "solve_ising"),
     "mcmc": ("repro_torch.solvers.mcmc", "solve_ising"),
     "brute": ("repro_torch.solvers.brute", "solve_ising"),
-}
-# Reference solvers the port does not have yet, with the ROADMAP queue-1
-# item that ports them, by title.
-NOT_PORTED = {
-    "tabu": "queue 1: host solvers",
-    "sa": "queue 1: host solvers",
-    "random": "queue 1: host solvers",
 }
 
 ISING_SOLVER_NAMES = tuple(sorted(_ISING_SOLVERS))
 
 
-def not_ported(name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"solver {name!r} is not ported to repro_torch yet: ROADMAP {NOT_PORTED[name]}"
-    )
-
-
 def ising_solver(name: str) -> Callable[..., SolverResult]:
     """Uniform per-iteration solver entry point for ``name``: a callable
     ``(ising, key, *, reads=8, steps=400, check=False, reduce="none")``."""
-    if name in NOT_PORTED:
-        raise not_ported(name)
     try:
         module, attr = _ISING_SOLVERS[name]
     except KeyError:
@@ -347,9 +335,7 @@ class ThreadPoolBackend:
     clock (wall seconds since construction).  Results are bit-identical to
     the inline path (each job solves from its own key; worker scheduling
     cannot reorder anything a result depends on).  Jobs run on the device
-    their instance lies on.  The default ``solver="tabu"`` is the
-    reference's; the port's registry raises for it until the host solvers
-    are ported.
+    their instance lies on.
     """
 
     def __init__(self, solver: str = "tabu", *, workers: int = 4,

@@ -310,9 +310,15 @@ def test_reference_bounds_exact_match(n, m):
 
 
 def test_reference_bounds_tabu_branch_not_ported():
-    _, tp = _problems(40, m=12)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmetrics.reference_bounds(tp)
+    """Once a guard for the unported branch, now its positive check: C(40,
+    12) exceeds enumeration, so both packages take the Tabu fallback, with
+    bounds within rtol 1e-5 (floating-point instance, another summation
+    order) and exact=False."""
+    jp, tp = _problems(40, m=12)
+    want, got = jmetrics.reference_bounds(jp), tmetrics.reference_bounds(tp)
+    assert (got.exact, want.exact) == (False, False)
+    np.testing.assert_allclose([got.obj_max, got.obj_min], [want.obj_max, want.obj_min],
+                               rtol=1e-5)
 
 
 def test_tts_ets_match():
@@ -352,9 +358,10 @@ def test_energy_selection_and_rebalance_match():
 
 def test_brute_registry_solver_matches():
     from repro.solvers import brute as jbrute
+    from repro.solvers.base import ISING_SOLVER_NAMES as J_ISING_SOLVER_NAMES
     from repro_torch.solvers import ISING_SOLVER_NAMES, ising_solver
 
-    assert ISING_SOLVER_NAMES == ("brute", "cobi", "mcmc")
+    assert ISING_SOLVER_NAMES == J_ISING_SOLVER_NAMES == ("brute", "cobi", "mcmc", "sa", "tabu")
     jp, tp = _problems(12)
     ji, ti = jform.improved_ising(jp), tform.improved_ising(tp)
     want = jbrute.solve_ising(ji)

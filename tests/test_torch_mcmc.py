@@ -38,10 +38,11 @@ try:
     from repro.farm import McmcPoolBackend as JMcmcPool
     from repro.kernels import ops as jops
     from repro.kernels import ref as jref
+    from repro.solvers import base as jbase
     from repro.solvers.base import ising_solver as jising_solver
 except ModuleNotFoundError:  # a machine with a card but no JAX runs only the cuda tests
     jax = jnp = JSolveConfig = JMCMC_CMOS = jimproved = jquantize = jsolve_es = None
-    synthetic_benchmark = JMcmcPool = jops = jref = jising_solver = None
+    synthetic_benchmark = JMcmcPool = jops = jref = jbase = jising_solver = None
 from repro_torch import prng as tprng
 from repro_torch.core import SolveConfig, solve_es
 from repro_torch.core.formulation import IsingProblem
@@ -356,9 +357,32 @@ def test_registry_contract_for_mcmc(instance):
     assert torch.equal(best.spins, host.spins) and torch.equal(best.energies, host.energies)
 
 
-def test_thread_pool_default_solver_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="queue 1: host solvers"):
-        ThreadPoolBackend()
+def test_thread_pool_default_solver_names_its_roadmap_item(instance):
+    """Once a guard for the unported default, now its positive check:
+    ThreadPoolBackend() runs the reference's default solver, tabu, and jobs
+    through it (reduced and not, several read counts) equal the reference
+    pool's on the same instance and keys bit for bit, with receipts that
+    carry the same billing fields."""
+    jq, tq = instance
+    jpool = jbase.ThreadPoolBackend(workers=2)
+    try:
+        with ThreadPoolBackend(workers=2) as pool:
+            assert (pool.solver, pool.policy) == (jpool.solver, jpool.policy) == ("tabu", "pool")
+            futs = [(jpool.submit(jq, jax.random.key(seed), reads=reads, reduce=reduce, tag=seed),
+                     pool.submit(tq, _tkey(jax.random.key(seed)), reads=reads, reduce=reduce,
+                                 tag=seed))
+                    for seed, reads, reduce in ((5, 8, "best"), (6, 4, "none"), (7, 16, "best"))]
+            for jf, tf in futs:
+                got, want = tf.result(timeout=60), jf.result(timeout=60)
+                np.testing.assert_array_equal(got.spins.numpy(), np.asarray(want.spins))
+                np.testing.assert_array_equal(got.energies.numpy(), np.asarray(want.energies))
+                jr, tr = jf.receipt(), tf.receipt()
+                assert (tr.tag, tr.chip_seconds, tr.bytes_h2d, tr.bytes_d2h) == (
+                    jr.tag, jr.chip_seconds, jr.bytes_h2d, jr.bytes_d2h)
+                assert tr.host_seconds > 0 and tr.energy_joules == tr.host_seconds * 20.0
+            assert pool.drain() == 0 and pool.pending_jobs() == 0
+    finally:
+        jpool.close()
 
 
 def test_pool_receipts_and_results_equal_the_reference(instance):

@@ -21,6 +21,7 @@ from repro.core import solve_es as jsolve_es
 from repro.core.formulation import EsProblem as JEsProblem
 from repro.core.formulation import improved_ising as jimproved
 from repro.core.metrics import normalized_objective, reference_bounds
+from repro.solvers.base import ising_solver as jising_solver
 from repro.data.synthetic import (
     scores_from_embeddings,
     synthetic_benchmark,
@@ -32,6 +33,7 @@ from repro_torch.core import pipeline as tpipe
 from repro_torch.data.synthetic import synthetic_document
 from repro_torch.embeddings import problem_from_sentences
 from repro_torch.interop import carry_across
+from repro_torch.solvers import ising_solver
 
 CFG = dict(solver="cobi", iterations=4, reads=8, int_range=14, steps=300)
 
@@ -161,6 +163,22 @@ def test_entry_points_default_to_the_card(entry):
 
 @pytest.mark.parametrize("solver", ["tabu", "sa", "random"])
 def test_unported_solvers_name_their_roadmap_item(solver):
-    _, tp = _system_instance()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        solve_es(tp, _key(jax.random.key(0)), SolveConfig(solver=solver), device="cpu")
+    """Once a guard for the unported solvers, now their positive check: the
+    reference's solve_es with each gives the same selection (Tabu and random
+    also the same objective and curve, bit for bit), and "random", which is
+    a solve_es baseline and no registry name, raises in ising_solver what
+    the reference raises."""
+    jp, tp = _system_instance()
+    cfg = dict(solver=solver, iterations=3)
+    want = jsolve_es(jp, jax.random.key(0), JSolveConfig(**cfg))
+    got = solve_es(tp, _key(jax.random.key(0)), SolveConfig(**cfg), device="cpu")
+    np.testing.assert_array_equal(got.selection, want.selection)
+    if solver != "sa":
+        assert got.objective == want.objective
+        np.testing.assert_array_equal(got.curve, want.curve)
+    if solver == "random":
+        with pytest.raises(ValueError) as jerr:
+            jising_solver("random")
+        with pytest.raises(ValueError) as terr:
+            ising_solver("random")
+        assert str(terr.value) == str(jerr.value)
