@@ -4,9 +4,10 @@ Two interchangeable backends, as in the reference:
   * ``HashedBowEncoder``: deterministic hashed bag-of-words with a signed
     random projection per word (numpy + blake2b), training-free,
     bit-identical to the reference's.
-  * ``BackboneEncoder``: mean-pooled hidden states per sentence of the
-    dense backbone (``models/``, ``configs/sbert_paper.py``) via
-    ``models.embed_sentences``; ``embeddings/serving.py`` batches it.
+  * ``BackboneEncoder``: mean-pooled hidden states per sentence of a
+    text-only backbone (``models/``: ``configs/sbert_paper.py``, or a
+    dense, moe, hybrid or ssm config) via ``models.embed_sentences``;
+    ``embeddings/serving.py`` batches it.
 """
 
 from __future__ import annotations

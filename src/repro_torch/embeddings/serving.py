@@ -1,8 +1,9 @@
 """Batched backbone-encoder serving stage: continuous batching in front of
 the Ising farm.
 
-Twin of ``repro.embeddings.serving``.  The neural encoder (``models/`` +
-``configs/sbert_paper.py``; optionally the flash-attention kernel via
+Twin of ``repro.embeddings.serving``.  The neural encoder (``models/``:
+``configs/sbert_paper.py``, or any text-only family: dense, moe, hybrid,
+ssm; optionally the flash-attention kernel via
 ``cfg.attn_impl="flash"``) sits behind the same submit->future discipline
 the COBI farm uses, as a SECOND pipeline stage whose drains run
 concurrently with Ising drains:
@@ -16,8 +17,11 @@ concurrently with Ising drains:
     discipline: a handful of shapes), and runs ONE ``embed_sentences``
     pass per group.
   * Padding is inert by construction: the backbone is causal, so trailing
-    PAD tokens cannot affect real-token hidden states; batch rows and
-    pooling one-hot columns are independent per row/segment.  Same
+    PAD tokens cannot affect real-token hidden states (an MoE backbone
+    routes each row's tokens in order, so trailing PADs take the last
+    capacity slots, but its capacity grows with the padded length: its
+    embeddings depend on the length bucket, as the reference's do); batch
+    rows and pooling one-hot columns are independent per row/segment.  Same
     sentences => identical embeddings (and identical mu/beta) regardless
     of batch composition -- tested.
   * Each job's :class:`EncodeReceipt` meters encoder wall seconds (the
@@ -170,6 +174,11 @@ class EncoderStage:
         to route through the flash-attention kernel).  The stage runs on
         ``device`` (``None``: the card; raises without one) and moves the
         model there."""
+        if cfg.family in ("vlm", "encdec"):
+            raise ValueError(
+                f"EncoderStage encodes text alone; {cfg.name} ({cfg.family}) needs frontend "
+                f"embeddings, which the stage has no way to pass (as in the reference): call "
+                f"models.embed_sentences(..., frontend=...) instead")
         if attn_impl is not None:
             cfg = cfg.replace(attn_impl=attn_impl)
         self.device = resolve_device(device)

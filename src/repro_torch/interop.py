@@ -2,10 +2,11 @@
 
 What crosses: PRNG keys, as the raw ``(2,)`` uint32 words of
 ``jax.random.key_data(key)``; problem instances (``EsProblem``'s mu, beta,
-m, lam and ``IsingProblem``'s h, J) as numpy arrays; the encoder
-backbone's weights, the reference's ``init_params`` tree as nested dicts of
-numpy arrays; a serving ``CalibrationProfile`` as its JSON text; and
-serving ``SelectionRequest``s as ``dataclasses.asdict`` dicts.
+m, lam and ``IsingProblem``'s h, J) as numpy arrays; a backbone's
+weights (any model family), the reference's ``init_params`` tree as
+nested dicts of numpy arrays; a serving ``CalibrationProfile`` as its
+JSON text; and serving ``SelectionRequest``s as ``dataclasses.asdict``
+dicts.
 :func:`carry_across` turns them into the port's objects, so a test can hand
 the same state to both packages.  Nothing here imports JAX: the caller
 converts to numpy, text or dicts on its side.
@@ -28,8 +29,8 @@ def carry_across(kind: str, *arrays, device=None, **fields):
       * ``carry_across("es", mu, beta, m=..., lam=...)`` -> :class:`EsProblem`;
       * ``carry_across("ising", h, j)`` -> :class:`IsingProblem`;
       * ``carry_across("params", tree, cfg=...)`` -> the port's
-        ``models.Model`` (one module per layer of the stacked tree; leaves
-        cast to ``cfg.dtype``);
+        ``models.Model`` (one module per index of each stacked axis; each
+        leaf cast to its parameter's type);
       * ``carry_across("profile", json_text)`` -> the port's
         ``serving.CalibrationProfile`` (the reference's ``to_json()``);
       * ``carry_across("requests", dicts)`` -> a list of the port's

@@ -1,11 +1,13 @@
-"""Self-attention of the dense family in train mode: twins of
-``repro.models.attention`` (GQA / MQA, QKV bias, sliding window, RoPE).
+"""Attention in train mode: twins of ``repro.models.attention`` (GQA /
+MQA, QKV bias, sliding window, RoPE, cross-attention gated or not).
 
-Three routes, chosen as the reference chooses them (``self_attention``):
-the flash kernel (``cfg.attn_impl == "flash"``, ``kernels/ops.py``), the
-chunked online softmax (``_sdpa_chunked``, "auto" at S a multiple of
-``cfg.attn_chunk`` above it), and the naive softmax (``_sdpa``).  Prefill
-and decode caches and cross-attention are not ported yet.
+Self-attention takes three routes, chosen as the reference chooses them
+(``self_attention``): the flash kernel (``cfg.attn_impl == "flash"``,
+``kernels/ops.py``), the chunked online softmax (``_sdpa_chunked``,
+"auto" at S a multiple of ``cfg.attn_chunk`` above it), and the naive
+softmax (``_sdpa``).  Cross-attention takes the naive softmax with no
+mask, as the reference's does.  Prefill and decode caches are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -22,9 +24,10 @@ NEG_INF = -1e30
 
 class Attention(torch.nn.Module):
     """wq (d, H hd), wk and wv (d, KV hd), wo (H hd, d); bq, bk, bv with
-    ``cfg.qkv_bias``."""
+    ``cfg.qkv_bias``; with ``cross`` the float32 scalar tanh gate of the
+    vlm's cross-attention layers (zero at init)."""
 
-    def __init__(self, cfg, gen: Optional[torch.Generator] = None):
+    def __init__(self, cfg, gen: Optional[torch.Generator] = None, cross: bool = False):
         super().__init__()
         d, h, kv, hd, dt = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.dtype
         self.wq = param(gen, (d, h * hd), dt)
@@ -35,6 +38,8 @@ class Attention(torch.nn.Module):
             self.bq = param(gen, (h * hd,), dt, fill=0.0)
             self.bk = param(gen, (kv * hd,), dt, fill=0.0)
             self.bv = param(gen, (kv * hd,), dt, fill=0.0)
+        if cross:
+            self.gate = param(gen, (), torch.float32, fill=0.0)
 
 
 def _project_qkv(p: Attention, cfg, x, kv_src):
@@ -141,3 +146,15 @@ def self_attention(p: Attention, cfg, x, positions, *, mode: str = "train",
             mask &= k_pos > q_pos - w
         out = _sdpa(q, k, v, mask, scale, probs_dtype=probs_dtype)
     return out.reshape(b, s, -1) @ p.wo
+
+
+def cross_attention(p: Attention, cfg, x, memory, *, gated: bool = False) -> torch.Tensor:
+    """Attention of x (B, S, d) over memory (B, T, d), frontend or encoder
+    states, with no mask; scaled by tanh(gate) when ``gated``."""
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(p, cfg, x, memory)
+    out = _sdpa(q, k, v, None, cfg.hd**-0.5)
+    out = out.reshape(b, s, -1) @ p.wo
+    if gated and hasattr(p, "gate"):
+        out = torch.tanh(p.gate).to(out.dtype) * out
+    return out

@@ -33,12 +33,15 @@ def dense_init(gen: torch.Generator, shape, dtype, scale: Optional[float] = None
 
 
 def param(gen: Optional[torch.Generator], shape, dtype, scale: Optional[float] = None,
-          fill: Optional[float] = None) -> torch.nn.Parameter:
-    """A frozen parameter: ``fill`` everywhere if given, else ``dense_init``
-    from ``gen``, else uninitialised (for weights carried across).  Frozen
+          fill=None) -> torch.nn.Parameter:
+    """A frozen parameter: ``fill`` everywhere if it is a number, or
+    ``fill``'s values (a tensor of ``shape``); else ``dense_init`` from
+    ``gen``, else uninitialised (for weights carried across).  Frozen
     because this slice serves; training turns gradients on."""
     device = gen.device if gen is not None else None
-    if fill is not None:
+    if isinstance(fill, torch.Tensor):
+        t = fill.to(dtype=dtype, device=device).reshape(shape)
+    elif fill is not None:
         t = torch.full(shape, fill, dtype=dtype, device=device)
     elif gen is not None:
         t = dense_init(gen, shape, dtype, scale)
@@ -91,3 +94,25 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(seq: int, dim: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    """Classic transformer absolute embeddings (whisper-style frontends)."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    # The rate in float32, as the reference's -jnp.log(10000.0) / dim is.
+    rate = -torch.log(torch.tensor(10000.0, device=device)) / dim
+    div = torch.exp(torch.arange(0, dim, 2, dtype=torch.float32, device=device) * rate)
+    emb = torch.zeros((seq, dim), dtype=torch.float32, device=device)
+    emb[:, 0::2] = torch.sin(pos * div)
+    emb[:, 1::2] = torch.cos(pos * div)
+    return emb.to(dtype)
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv in train mode: x (B, S, C), w (K, C), a zero left
+    pad of K - 1 steps.  The decode state waits for the caches (ROADMAP
+    queue 1: prefill and decode caches)."""
+    k = w.shape[0]
+    pad = torch.zeros(x.shape[:1] + (k - 1,) + x.shape[2:], dtype=x.dtype, device=x.device)
+    xp = torch.cat([pad, x], dim=1)  # (B, S+K-1, C)
+    return sum(xp[:, i:i + x.shape[1]] * w[i][None, None, :] for i in range(k))

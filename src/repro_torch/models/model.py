@@ -1,65 +1,232 @@
-"""Model assembly for the dense family: twins of ``repro.models.model``'s
-``init_params``, ``forward`` (train mode) and ``embed_sentences``.
+"""Model assembly, every family of the registry in train mode: twins of
+``repro.models.model``'s ``init_params``, ``forward``, ``encode`` and
+``embed_sentences``.
 
-The reference stacks its layers as one pytree with a leading ``n_groups``
-axis and scans over it; here each layer is a :class:`Block` in an
-``nn.ModuleList`` and the forward pass walks them in order.  The modules
-hold parameters; the functions apply them, so one model serves several
-configs that differ only in how they compute (``attn_impl``).
+The reference stacks its layers as pytrees with a leading ``n_groups``
+axis (and a second axis for a group's repeated sub-blocks) and scans over
+them; here each group is a module in an ``nn.ModuleList``, a group's
+repeated sub-blocks a nested ``nn.ModuleList``, and the forward pass walks
+them in order.  A group per family, as the reference's ``_group_init``:
+
+  * dense, moe, encdec: one transformer :class:`Block` (MoE in place of the
+    MLP for moe; self-attention, then cross-attention over the encoder's
+    states, for the encdec decoder);
+  * vlm: g - 1 self-attention blocks, then one gated cross-attention block
+    over the frontend embeddings;
+  * hybrid: g Mamba2 blocks, then the one shared attention block
+    (``model.shared["attn"]``, with its MLP), reapplied after every group;
+  * ssm: g - 1 mLSTM blocks, then one sLSTM block.
+
+The modules hold parameters; the functions apply them, so one model serves
+several configs that differ only in how they compute (``attn_impl``,
+``moe_impl``).
 
 Entry points:
   init_params(cfg, seed, device=None) -> Model
-  forward(cfg, model, tokens, positions=None, mode="train",
+  forward(cfg, model, tokens, positions=None, mode="train", frontend=None,
           return_hidden=False) -> (logits or hidden, None, aux)
-  embed_sentences(cfg, model, tokens, seg_ids, n_segments) -> (B, G, d)
+  encode(cfg, model, frontend) -> encoder states (encdec)
+  embed_sentences(cfg, model, tokens, seg_ids, n_segments, frontend=None)
 """
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import ssd, xlstm
 from repro_torch.models.common import RMSNorm, not_ported, param, rmsnorm
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
 
 
 class Block(torch.nn.Module):
-    """One transformer block: attn_norm, attn, mlp_norm, mlp (if d_ff)."""
+    """One transformer block: attn_norm, attn, mlp_norm, then moe (with
+    ``use_moe``) or mlp (if d_ff).  ``cross``: the attention itself is the
+    vlm's gated cross-attention, and the block's FFN has its own tanh gate
+    ffn_gate (float32, zero at init); ``with_cross``: an encdec decoder
+    block, cross_norm and cross_attn after the self-attention."""
+
+    def __init__(self, cfg, gen: Optional[torch.Generator] = None, *, cross: bool = False,
+                 use_moe: bool = False, with_cross: bool = False):
+        super().__init__()
+        self.attn_norm = RMSNorm(cfg.d_model, cfg.dtype, gen)
+        self.attn = attn.Attention(cfg, gen, cross=cross)
+        self.mlp_norm = RMSNorm(cfg.d_model, cfg.dtype, gen)
+        if with_cross:
+            self.cross_norm = RMSNorm(cfg.d_model, cfg.dtype, gen)
+            self.cross_attn = attn.Attention(cfg, gen)
+        if use_moe:
+            self.moe = mlp_mod.Moe(cfg, gen)
+        elif cfg.d_ff:
+            self.mlp = mlp_mod.Mlp(cfg, gen)
+        if cross:
+            self.ffn_gate = param(gen, (), torch.float32, fill=0.0)
+
+
+def _attn_block_apply(p: Block, cfg, x, positions, *, memory=None, cross=False, causal=True):
+    """(x, aux): the block's residual update and its router aux loss."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = rmsnorm(p.attn_norm.scale, x, eps=cfg.norm_eps)
+    if cross:
+        a = attn.cross_attention(p.attn, cfg, h, memory, gated=True)
+    else:
+        a = attn.self_attention(p.attn, cfg, h, positions, causal=causal)
+    x = x + a
+    if hasattr(p, "cross_attn"):  # enc-dec decoder block
+        h = rmsnorm(p.cross_norm.scale, x, eps=cfg.norm_eps)
+        x = x + attn.cross_attention(p.cross_attn, cfg, h, memory)
+    h = rmsnorm(p.mlp_norm.scale, x, eps=cfg.norm_eps)
+    if hasattr(p, "moe"):
+        m, aux = mlp_mod.moe_apply(p.moe, cfg, h)
+    elif hasattr(p, "mlp"):
+        m = mlp_mod.mlp_apply(p.mlp, cfg, h)
+    else:
+        m = torch.zeros_like(h)
+    if cross:
+        m = torch.tanh(p.ffn_gate).to(m.dtype) * m
+    return x + m, aux
+
+
+class MixerBlock(torch.nn.Module):
+    """norm, then a sequence mixer under the reference's name for it:
+    ``mixer`` (Mamba2, mLSTM) or ``cell`` (sLSTM)."""
+
+    def __init__(self, cfg, gen: Optional[torch.Generator], name: str, mixer_cls):
+        super().__init__()
+        self.norm = RMSNorm(cfg.d_model, cfg.dtype, gen)
+        setattr(self, name, mixer_cls(cfg, gen))
+
+
+def _mixer_block_apply(p: MixerBlock, cfg, x, name: str, apply_fn):
+    h = rmsnorm(p.norm.scale, x, eps=cfg.norm_eps)
+    return x + apply_fn(getattr(p, name), cfg, h)
+
+
+# ---------------------------------------------------------------------------
+# Super-block (group) definitions per family
+# ---------------------------------------------------------------------------
+
+
+class Group(torch.nn.Module):
+    """One super-block of a heterogeneous family; its sub-block lists and
+    blocks carry the reference's names (``self`` and ``cross`` for vlm,
+    ``mamba`` for hybrid, ``mlstm`` and ``slstm`` for ssm)."""
+
+    def __init__(self, parts: dict):
+        super().__init__()
+        for name, part in parts.items():
+            setattr(self, name, part)
+
+
+def _group_init(cfg, gen):
+    fam, g = cfg.family, cfg.group_size
+    if fam in ("dense", "moe", "encdec"):
+        if g != 1:
+            raise ValueError(f"{cfg.name}: a {fam} group is one block, not {g}")
+        return Block(cfg, gen, use_moe=cfg.moe is not None, with_cross=fam == "encdec")
+    if fam == "vlm":
+        return Group({"self": torch.nn.ModuleList(Block(cfg, gen) for _ in range(g - 1)),
+                      "cross": Block(cfg, gen, cross=True)})
+    if fam == "hybrid":
+        return Group({"mamba": torch.nn.ModuleList(
+            MixerBlock(cfg, gen, "mixer", ssd.Mamba2) for _ in range(g))})
+    if fam == "ssm":  # xlstm
+        return Group({"mlstm": torch.nn.ModuleList(
+                          MixerBlock(cfg, gen, "mixer", xlstm.Mlstm) for _ in range(g - 1)),
+                      "slstm": MixerBlock(cfg, gen, "cell", xlstm.Slstm)})
+    raise ValueError(f"unknown model family {fam!r}")
+
+
+def _group_apply(cfg, gp, shared, x, positions, memory):
+    """Apply one super-block: (x, aux)."""
+    fam = cfg.family
+    if fam in ("dense", "moe", "encdec"):
+        return _attn_block_apply(gp, cfg, x, positions, memory=memory)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if fam == "vlm":
+        for blk in gp.self:
+            x, a = _attn_block_apply(blk, cfg, x, positions)
+            aux = aux + a
+        x, a = _attn_block_apply(gp.cross, cfg, x, positions, memory=memory, cross=True)
+        return x, aux + a
+    if fam == "hybrid":
+        for blk in gp.mamba:
+            x = _mixer_block_apply(blk, cfg, x, "mixer", ssd.mamba2_apply)
+        # Shared attention block (zamba2): one weight set reused per group.
+        x, a = _attn_block_apply(shared["attn"], cfg, x, positions)
+        return x, aux + a
+    if fam == "ssm":
+        for blk in gp.mlstm:
+            x = _mixer_block_apply(blk, cfg, x, "mixer", xlstm.mlstm_apply)
+        x = _mixer_block_apply(gp.slstm, cfg, x, "cell", xlstm.slstm_apply)
+        return x, aux
+    raise ValueError(f"unknown model family {fam!r}")
+
+
+# ---------------------------------------------------------------------------
+# Whisper encoder (non-causal self-attention over frontend embeddings)
+# ---------------------------------------------------------------------------
+
+
+class Encoder(torch.nn.Module):
+    """blocks (``encoder_layers`` transformer blocks) and a final norm."""
 
     def __init__(self, cfg, gen: Optional[torch.Generator] = None):
         super().__init__()
-        self.attn_norm = RMSNorm(cfg.d_model, cfg.dtype, gen)
-        self.attn = attn.Attention(cfg, gen)
-        self.mlp_norm = RMSNorm(cfg.d_model, cfg.dtype, gen)
-        if cfg.d_ff:
-            self.mlp = mlp_mod.Mlp(cfg, gen)
+        self.blocks = torch.nn.ModuleList(Block(cfg, gen) for _ in range(cfg.encoder_layers))
+        self.norm = RMSNorm(cfg.d_model, cfg.dtype, gen)
+
+
+def encode(cfg, model: "Model", frontend: torch.Tensor) -> torch.Tensor:
+    """frontend: (B, T, d) stub conv/patch embeddings -> encoder states.
+    At T = 1500 (whisper) the sequence does not tile into the flash
+    kernel's blocks, so every route takes the naive softmax, as in the
+    reference."""
+    b, t, _ = frontend.shape
+    positions = torch.arange(t, device=frontend.device)[None].expand(b, t)
+    x = frontend
+    for blk in model.encoder.blocks:
+        x, _ = _attn_block_apply(blk, cfg, x, positions, causal=False)
+    return rmsnorm(model.encoder.norm.scale, x, eps=cfg.norm_eps)
+
+
+# ---------------------------------------------------------------------------
+# Top-level model
+# ---------------------------------------------------------------------------
 
 
 class Model(torch.nn.Module):
-    """embed (padded vocab, d), final_norm, layers, and unembed (d, padded
-    vocab) unless the embeddings are tied: the reference's parameter tree,
-    one :class:`Block` per layer."""
+    """embed (padded vocab, d), final_norm, layers (one group each), and
+    unembed (d, padded vocab) unless the embeddings are tied; ``shared``
+    (hybrid: the shared attention block) and ``encoder`` (encdec): the
+    reference's parameter tree."""
 
     def __init__(self, cfg, gen: Optional[torch.Generator] = None):
         super().__init__()
-        check_ported(cfg)
         self.embed = param(gen, (cfg.padded_vocab, cfg.d_model), cfg.dtype, scale=1.0)
         self.final_norm = RMSNorm(cfg.d_model, cfg.dtype, gen)
-        self.layers = torch.nn.ModuleList(Block(cfg, gen) for _ in range(cfg.n_groups))
+        self.layers = torch.nn.ModuleList(_group_init(cfg, gen) for _ in range(cfg.n_groups))
         if not cfg.tie_embeddings:
             self.unembed = param(gen, (cfg.d_model, cfg.padded_vocab), cfg.dtype)
+        self.shared = (torch.nn.ModuleDict({"attn": Block(cfg, gen)})
+                       if cfg.family == "hybrid" else None)
+        if cfg.family == "encdec":
+            self.encoder = Encoder(cfg, gen)
 
 
 def check_ported(cfg, mode: str = "train") -> None:
-    """Raise for what the port's model stack cannot run yet."""
-    if cfg.family != "dense" or cfg.moe is not None:
-        raise not_ported(f"model family {cfg.family!r} of {cfg.name}",
-                         "queue 1: the other model families")
+    """Raise for what the port's model stack cannot run yet: every family
+    runs in train mode only."""
     if mode != "train":
-        raise not_ported(f"mode {mode!r}", "queue 1: prefill and decode caches")
+        raise not_ported(f"mode {mode!r} of {cfg.name}", "queue 1: prefill and decode caches")
 
 
 def init_params(cfg, seed: int, device=None) -> Model:
@@ -71,14 +238,6 @@ def init_params(cfg, seed: int, device=None) -> Model:
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     return Model(cfg, gen)
-
-
-def _attn_block_apply(p: Block, cfg, x, positions, *, causal=True):
-    h = rmsnorm(p.attn_norm.scale, x, eps=cfg.norm_eps)
-    x = x + attn.self_attention(p.attn, cfg, h, positions, causal=causal)
-    h = rmsnorm(p.mlp_norm.scale, x, eps=cfg.norm_eps)
-    m = mlp_mod.mlp_apply(p.mlp, cfg, h) if cfg.d_ff else torch.zeros_like(h)
-    return x + m
 
 
 def _logits(cfg, model: Model, x: torch.Tensor) -> torch.Tensor:
@@ -96,10 +255,12 @@ def forward(
     positions: Optional[torch.Tensor] = None,  # (B, S)
     *,
     mode: str = "train",
+    frontend: Optional[torch.Tensor] = None,  # (B, T, d) vlm / audio stub embeddings
     return_hidden: bool = False,
 ) -> Tuple[torch.Tensor, None, torch.Tensor]:
-    """(logits (B, S, padded vocab) float32, or the last layer's hidden
-    states (B, S, d) with ``return_hidden``; no cache; aux = 0)."""
+    """(logits (B, S, padded vocab) float32, or the last group's hidden
+    states (B, S, d) with ``return_hidden``; no cache; aux, the summed
+    router aux loss of the MoE layers, float32)."""
     check_ported(cfg, mode)
     b, s = tokens.shape
     if positions is None:
@@ -108,20 +269,27 @@ def forward(
     # jnp.asarray(d_model**0.5, dtype) is (27.71 -> 27.75 in bf16).
     x = model.embed[tokens.long()] * torch.tensor(cfg.d_model**0.5, dtype=cfg.dtype,
                                                    device=tokens.device)
-    for block in model.layers:
-        x = _attn_block_apply(block, cfg, x, positions)
+    memory = None
+    if cfg.family in ("vlm", "encdec"):
+        if frontend is None:
+            raise ValueError(f"{cfg.name}: vlm/encdec need frontend embeddings")
+        memory = encode(cfg, model, frontend) if cfg.family == "encdec" else frontend
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for group in model.layers:
+        x, a = _group_apply(cfg, group, model.shared, x, positions, memory)
+        aux = aux + a
     if return_hidden:
         return x, None, aux
     return _logits(cfg, model, x), None, aux
 
 
 def embed_sentences(cfg, model: Model, tokens: torch.Tensor, seg_ids: torch.Tensor,
-                    n_segments: int) -> torch.Tensor:
+                    n_segments: int, *, frontend: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean-pool hidden states per sentence segment -> (B, n_segments, d)
     float32.  seg_ids: (B, S) sentence id per token, -1 for padding (a zero
     one-hot row, as ``jax.nn.one_hot(-1, G)`` gives)."""
-    hidden, _, _ = forward(cfg, model, tokens, mode="train", return_hidden=True)
+    hidden, _, _ = forward(cfg, model, tokens, mode="train", frontend=frontend,
+                           return_hidden=True)
     segs = torch.arange(n_segments, device=seg_ids.device)
     onehot = (seg_ids[..., None] == segs).to(torch.float32)  # (B, S, G)
     sums = torch.einsum("bsd,bsg->bgd", hidden.to(torch.float32), onehot)
@@ -131,24 +299,30 @@ def embed_sentences(cfg, model: Model, tokens: torch.Tensor, seg_ids: torch.Tens
 
 def model_from_tree(cfg, tree: dict, device=None) -> Model:
     """The port's model holding the reference's ``init_params`` tree, given
-    as nested dicts of numpy arrays: each leaf of ``layers`` has a leading
-    ``n_groups`` axis, split one layer per :class:`Block`; leaves are cast
-    to the config's type (bf16 leaves may arrive as float32 arrays)."""
+    as nested dicts of numpy arrays.  A leaf under a stacked part carries
+    that part's axes in front: ``layers`` (n_groups), and within a group
+    ``self``, ``mamba`` and ``mlstm`` (the group's sub-blocks);
+    ``encoder.blocks`` (encoder_layers).  Each is split one module per
+    index; ``shared`` and ``encoder.norm`` are unstacked.  Each leaf takes
+    its own parameter's type (float32 routers, gates and SSM constants in a
+    bf16 model; bf16 leaves may arrive as float32 arrays)."""
     device = resolve_device(device)
     model = Model(cfg)
     state = {}
 
-    def walk(node, prefix):
-        for name, leaf in node.items():
-            if isinstance(leaf, dict):
-                walk(leaf, f"{prefix}{name}.")
-            elif prefix.startswith("layers."):
-                for i in range(cfg.n_groups):
-                    state[f"layers.{i}.{prefix[7:]}{name}"] = torch.tensor(leaf[i])
+    def walk(module, node, prefix, index):
+        for name, sub in node.items():
+            child = getattr(module, name, None)
+            if isinstance(child, torch.nn.ModuleList):
+                for i, part in enumerate(child):
+                    walk(part, sub, f"{prefix}{name}.{i}.", index + (i,))
+            elif isinstance(sub, dict):
+                walk(child, sub, f"{prefix}{name}.", index)
             else:
-                state[f"{prefix}{name}"] = torch.tensor(leaf)
+                leaf = torch.from_numpy(np.array(np.asarray(sub)[index]))
+                state[prefix + name] = (leaf.to(child.dtype) if isinstance(child, torch.Tensor)
+                                        else leaf)
 
-    walk(tree, "")
-    state = {k: v.to(cfg.dtype) for k, v in state.items()}
+    walk(model, tree, "", ())
     model.load_state_dict(state, strict=True)
     return model.to(device)

@@ -25,6 +25,7 @@ from repro.models import common as jcommon
 from repro.models import embed_sentences as jembed_sentences
 from repro.models import init_params as jinit_params
 from repro.models import mlp as jmlp
+from repro_torch.configs import REGISTRY
 from repro_torch.configs.base import get_config
 from repro_torch.data.tokenizer import ByteTokenizer
 from repro_torch.interop import carry_across
@@ -218,11 +219,15 @@ def test_forward_logits_mask_the_padded_vocab():
     _close(got[..., :tcfg.vocab_size], np.asarray(want)[..., :tcfg.vocab_size], EMBED_TOL)
 
 
-@pytest.mark.parametrize("name", ["mixtral-8x22b", "zamba2-2.7b", "xlstm-1.3b",
-                                  "whisper-medium", "llama-3.2-vision-11b"])
+@pytest.mark.parametrize("name", sorted(REGISTRY))
 def test_other_families_name_their_roadmap_item(name):
-    with pytest.raises(NotImplementedError, match="queue 1: the other model families"):
-        init_params(get_config(name).reduced(), 0, device="cpu")
+    """Every registered config runs in train mode; prefill and decode still
+    raise, naming their ROADMAP item."""
+    cfg = get_config(name).reduced()
+    model = init_params(cfg, 0, device="cpu")
+    for mode in ("prefill", "decode"):
+        with pytest.raises(NotImplementedError, match="queue 1: prefill and decode caches"):
+            forward(cfg, model, torch.zeros((1, 8), dtype=torch.int32), mode=mode)
 
 
 def test_other_modes_name_their_roadmap_item():
