@@ -126,6 +126,22 @@ Phases, each of which must pass or the script exits non-zero:
      full width cut to 2 layers, through ``embed_sentences`` (stub
      frontends), flash against sdpa; and all six at full width, float32,
      one group, the card against the CPU (2e-4, router choices equal);
+  4h. prefill and decode (``decode_phase``): tinyllama-1.1b at full width
+     and depth (bf16) through ``make_prefill_step`` (B 8 x 2,048 byte
+     tokens) and 256 greedy ``make_decode_step`` steps from
+     ``init_cache(cfg, 8, 2304)``: prefill wall and tokens/s, ms a step
+     (median, p99), tokens/s, a step's and a prefill's launches, host
+     syncs, idle share and split, the cache's bytes, peak memory and the
+     bounds, held against the
+     teacher-forced forward (greedy == its argmax where its top-2 gap
+     exceeds twice the logit error); mixtral-8x22b at full width cut to 2
+     layers, a prefill of 5,120 past its 4,096 window (the ring) and 64
+     steps, the same check at the MoE bar 0.5; no kernel of the port
+     launches on either (flash is train-only); every registered config at
+     full width in float32, one group, prefill 256 and 8 steps, the card
+     against the CPU (logits and every cache leaf within 2e-4, pos bit for
+     bit, router choices equal; xlstm also over 4 + 4 at its registered
+     init);
   5. time every kernel, its plain version and its bound (at the padded
      shapes the reference's kernels take, and at the instances' own n spins
      and reads; a COBI anneal row's bound_ms is the latter, since its loop
@@ -198,6 +214,12 @@ SLSTM_STEPS = 4
 # SolveConfig(solver="mcmc") on synthetic_document(7, 20), m = 6, key 0:
 # the JAX package's selection on the CPU.
 MCMC_DIRECT_SELECTION = [1, 4, 8, 9, 10, 12]
+# Phase 4h (decode): tinyllama's B 8 prompts of 2,048 byte tokens and 256
+# greedy steps; mixtral's prefill past its 4,096 window and 64 steps; the
+# card-against-CPU prefill and steps of every config.
+DECODE_BATCH, DECODE_PROMPT, DECODE_STEPS = 8, 2048, 256
+RING_PROMPT, RING_STEPS = 5120, 64
+PARITY_PROMPT, PARITY_STEPS = 256, 8
 
 
 def fail(msg: str) -> None:
@@ -924,6 +946,440 @@ def families_phase(dev, reset_counts, counts, expect, launches, enc_docs, key) -
         del card, host, frontend
         release()
     print(f"families phase wall: {time.perf_counter() - t_phase:.1f} s")
+
+
+def decode_split(prof, wall: float, n_steps: int) -> dict:
+    """A profiled run of ``n_steps`` decode steps (or prefills): device
+    launches, host syncs (the runtime's stream and event synchronisations
+    and blocking copies) and busy time a step, the idle share, and the busy
+    time split by where each kernel started: inside a ``decode.attention``
+    span (the softmax attention: the GQA repeat, products, mask, softmax),
+    else GEMMs by kernel name, else the rest (norms, RoPE, the cache write,
+    activations, residuals, casts, the logits' mask)."""
+    import bisect
+
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    events = [ev for ev in prof.events() if ev.device_type == cuda]
+    spans = sorted((ev.time_range.start, ev.time_range.end, ev.name[7:])
+                   for ev in events if ev.name.startswith("decode."))
+    starts = [sp[0] for sp in spans]
+    split = dict.fromkeys(("attention", "GEMMs", "other"), 0.0)
+    syncs = sum(ev.name in ("cudaStreamSynchronize", "cudaEventSynchronize", "cudaMemcpy")
+                for ev in prof.events())
+    kernels = 0
+    for ev in events:
+        if ev.name.startswith("decode."):
+            continue
+        kernels += 1
+        ms = ev.time_range.elapsed_us() / 1e3
+        i = bisect.bisect_right(starts, ev.time_range.start) - 1
+        region = spans[i][2] if i >= 0 and ev.time_range.start < spans[i][1] else None
+        low = ev.name.lower()
+        gemm = any(x in low for x in ("gemm", "gemv", "nvjet", "xmma", "cutlass"))
+        split["attention" if region == "attention" else "GEMMs" if gemm else "other"] += ms
+    busy = sum(split.values())
+    return {"steps": n_steps, "wall_ms_a_step": wall * 1e3 / n_steps,
+            "busy_ms_a_step": busy / n_steps, "launches_a_step": kernels / n_steps,
+            "host_syncs_a_step": syncs / n_steps,
+            "idle_share": 1 - busy / (wall * 1e3) if busy > 0 else None,
+            "split_ms_a_step": ({k: v / n_steps for k, v in split.items()} if spans
+                                else "not measured (no region spans on the device)")}
+
+
+def decode_phase(dev, reset_counts, counts, expect) -> None:
+    """Phase 4h: prefill and decode through the caches on the card.
+
+    (1) tinyllama-1.1b at full width and depth (22 layers, bf16,
+    ``init_params(seed 0)``): ``make_prefill_step`` on B 8 prompts of 2,048
+    byte tokens (``ByteTokenizer`` over ``synthetic_document`` texts; the
+    chunked attention route) into ``init_cache(cfg, 8, 2304)``, then 256
+    greedy ``make_decode_step`` steps, each fed the token chosen before; the
+    prefill wall and tokens/s, decode ms a step (CUDA events, median and
+    p99) and tokens/s, one step's launches, device idle share and split
+    (torch.profiler over 8 more steps; and one warm prefill's) and host
+    syncs (the profile and sync debug mode), the
+    cache's bytes, the peak memory, and the bounds (prefill FLOP over the
+    bf16 peak; a step's weights and valid k/v bytes over HBM's rate).
+    Check: the teacher-forced ``forward(mode="train")`` over the 2,304
+    tokens; at each of the 257 predicted positions the max abs logit error,
+    and the greedy token equal to the teacher's argmax wherever the
+    teacher's top-2 gap exceeds twice that error.  (2) mixtral-8x22b at
+    full width, ``n_layers`` 56 -> 2 (bf16): B 1, a prefill of 5,120 random
+    token ids (seeded, as the reference's decode check draws them), past
+    the 4,096 window (the ring's tail write, chunked route), 64 greedy steps
+    that wrap the ring, and the teacher-forced check over 5,184 tokens under
+    the window mask at the reference's MoE bar (0.5: capacity drops differ
+    between a pass of 5,184 tokens and one of 1), the dropped choices
+    counted.  No kernel of the port launches in (1) or (2): flash is
+    train-only.  (3) Every registered config at full width in float32, cut
+    to one group (whisper's encoder to 1 layer), B 2: a prefill of 256
+    random ids (and the stub frontend), then 8 decode steps, on the card and
+    on the CPU from the same weights: logits at every step and every cache
+    leaf after the last within 2e-4 (``pos`` bit for bit), the MoE routers'
+    choices equal; xlstm over a prefill of 4 and 4 steps at the registered
+    init (its sLSTM is chaotic at full width) and over the full lengths with
+    r at fan-in dh.
+    """
+    import copy
+    import gc
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.configs import REGISTRY
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.synthetic import synthetic_document
+    from repro_torch.data.tokenizer import ByteTokenizer
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import attention as attn
+    from repro_torch.models import decode_step, init_cache, init_params, prefill
+    from repro_torch.models import forward
+    from repro_torch.models import mlp as mlp_mod
+
+    t_phase = time.perf_counter()
+
+    def gb(n: float) -> str:
+        return f"{n / 1e9:.3f} GB"
+
+    def release() -> None:
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def tree_bytes(tree) -> int:
+        if isinstance(tree, dict):
+            return sum(tree_bytes(v) for v in tree.values())
+        return tree.numel() * tree.element_size()
+
+    def greedy(cfg, model, prompt, max_len, steps, label):
+        """Prefill ``prompt`` (B, S) through the step makers, then ``steps``
+        greedy decode steps: (the tokens fed (B, S + steps), the logits at
+        positions S - 1 .. S + steps - 1 (B, steps + 1, V), the greedy
+        tokens (B, steps + 1), ms a step by CUDA events, the warm prefill's
+        wall (a second prefill into the same slots), the decode wall, the
+        cache)."""
+        b, s = prompt.shape
+        prefill_step, step = make_prefill_step(cfg), make_decode_step(cfg)
+        cache = init_cache(cfg, b, max_len)
+        positions = torch.arange(s, s + steps, device=dev)[:, None, None].expand(steps, b, 1)
+        walls = []
+        for _ in range(2):  # cold (allocations, GEMM heuristics), then warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = prefill_step(model, prompt, cache)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        t_cold, t_prefill = walls
+        last = [logits[:, -1].clone()]
+        del logits
+        gen = [torch.argmax(last[0], dim=-1).to(torch.int32)]
+        events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                  for _ in range(steps)]
+        t0 = time.perf_counter()
+        for i in range(steps):
+            events[i][0].record()
+            nt, lg, cache = step(model, gen[-1][:, None], positions[i], cache)
+            events[i][1].record()
+            last.append(lg)
+            gen.append(nt)
+        torch.cuda.synchronize()
+        t_decode = time.perf_counter() - t0
+        ms = [a.elapsed_time(e) for a, e in events]
+        fed = torch.cat([prompt, torch.stack(gen[:-1], dim=1).to(prompt.dtype)], dim=1)
+        print(f"decode {label}: prefill B={b} S={s} wall {t_prefill * 1e3:.3f} ms warm "
+              f"({b * s / t_prefill:.1f} tokens/s; cold {t_cold * 1e3:.3f} ms); {steps} greedy "
+              f"steps: median "
+              f"{percentile(ms, 0.5):.4f} ms, p99 {percentile(ms, 0.99):.4f} ms, min "
+              f"{min(ms):.4f} ms a step (CUDA events), wall {t_decode:.3f} s "
+              f"({b * steps / t_decode:.1f} tokens/s)")
+        return (fed, torch.stack(last, dim=1), torch.stack(gen, dim=1), ms, t_prefill,
+                t_decode, cache)
+
+    def teacher_check(cfg, model, fed, step_logits, gen, s, bar, label):
+        """The teacher-forced forward over ``fed``: the max abs logit error at
+        each predicted position, and the greedy tokens against its argmax
+        wherever its top-2 gap exceeds twice that error."""
+        with torch.no_grad():
+            full, _, _ = forward(cfg, model, fed, mode="train")
+        v = cfg.vocab_size
+        teacher = full[:, s - 1:, :v]
+        del full
+        err = (step_logits[..., :v] - teacher).abs().amax(dim=(0, 2))  # by position
+        top2 = torch.topk(teacher, 2, dim=-1).values
+        decisive = (top2[..., 0] - top2[..., 1]) > 2 * err[None, :]
+        want = torch.argmax(teacher, dim=-1).to(torch.int32)
+        agree = (want == gen) | ~decisive
+        n_pos = err.numel()
+        sample = " ".join(f"{t}: {float(err[t]):.2e}" for t in
+                          sorted({0, 1, 2, 4, 8, 16, 32, 64, 128, n_pos - 1}) if t < n_pos)
+        print(f"decode {label} teacher-forced check over {fed.shape[1]} tokens: max abs logit "
+              f"error {float(err.max()):.4e} (median {float(err.median()):.4e}; by predicted "
+              f"position {sample}); greedy == teacher argmax at {int((decisive & agree).sum())}"
+              f" of {int(decisive.sum())} decisive of {decisive.numel()} positions; tokens "
+              f"equal overall {int((want == gen).sum())} of {gen.numel()}")
+        if not bool(torch.isfinite(step_logits[..., :v]).all()):
+            fail(f"decode {label}: logits not finite")
+        if not bool(agree.all()):
+            fail(f"decode {label}: the greedy token differs from the teacher-forced argmax at "
+                 f"{int((~agree).sum())} decisive positions")
+        if float(err.max()) >= bar:
+            fail(f"decode {label}: max abs logit error {float(err.max())} >= {bar}")
+
+    # ---------------------------------------------------------------- (1)
+    cfg = get_config("tinyllama-1.1b")
+    torch.cuda.reset_peak_memory_stats()
+    model = init_params(cfg, 0)
+    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    tok = ByteTokenizer()
+    rows = []
+    for i in range(DECODE_BATCH):
+        t, _ = tok.encode_sentences(synthetic_document(300 + i, 80), DECODE_PROMPT)
+        if (t == 0).any():
+            fail(f"decode prompt {i} is shorter than {DECODE_PROMPT} byte tokens")
+        rows.append(t)
+    prompt = torch.tensor(np.stack(rows), device=dev)
+    b, s, hd, n_l = DECODE_BATCH, DECODE_PROMPT, cfg.hd, cfg.n_layers
+    max_len = s + DECODE_STEPS
+    reset_counts()
+    fed, step_logits, gen, ms, t_prefill, t_decode, cache = greedy(
+        cfg, model, prompt, max_len, DECODE_STEPS, "tinyllama-1.1b")
+    c = counts()
+    if c != expect():
+        fail(f"decode tinyllama-1.1b: kernels of the port launched {c}; the decode path has none")
+    cache_bytes = tree_bytes(cache)
+    # Work: the layers' GEMMs and the unembedding at every position, and
+    # causal attention (QK^T and PV) over the pairs it needs.
+    layer_w = cfg.d_model * (2 * cfg.n_heads * hd + 2 * cfg.n_kv_heads * hd) \
+        + 3 * cfg.d_model * cfg.d_ff
+    p_flop = 2 * b * s * (n_l * layer_w + cfg.d_model * cfg.padded_vocab) \
+        + 4 * b * n_l * cfg.n_heads * hd * (s * (s + 1) // 2)
+    p_bytes = w_bytes + cache_bytes + b * s * (4 + 4 * cfg.padded_vocab)
+    p_bound, p_by = bound_ms(p_flop, p_bytes, PEAK_BF16_FLOPS)
+    kv_token = n_l * 2 * cfg.n_kv_heads * hd * 2  # bf16 k and v of one token, all layers
+    read_w = w_bytes - model.embed.numel() * model.embed.element_size() + b * cfg.d_model * 2
+    d_bounds = [bound_ms(2 * b * (read_w // 2) + 4 * b * n_l * cfg.n_heads * hd * (s + i + 1),
+                         read_w + b * kv_token * (s + i + 1), PEAK_BF16_FLOPS)
+                for i in range(DECODE_STEPS)]
+    d_mean = sum(x for x, _ in d_bounds) / len(d_bounds)
+    print(f"decode tinyllama-1.1b bounds: prefill {p_flop / 1e12:.3f} TFLOP, {gb(p_bytes)}, "
+          f"{p_bound:.4f} ms ({p_by}), measured {t_prefill * 1e3 / p_bound:.2f}x; a step reads "
+          f"{gb(read_w + b * kv_token * (s + 1))}-{gb(read_w + b * kv_token * max_len)} "
+          f"(weights but the embedding table, and the valid k/v), "
+          f"{d_bounds[0][0]:.4f}-{d_bounds[-1][0]:.4f} ms ({d_bounds[0][1]}; mean "
+          f"{d_mean:.4f}), median step {percentile(ms, 0.5) / d_mean:.2f}x; cache "
+          f"{gb(cache_bytes)} (B={b}, {max_len} slots, {kv_token} bytes a token); weights "
+          f"{gb(w_bytes)}")
+    teacher_check(cfg, model, fed, step_logits, gen, s, float("inf"), "tinyllama-1.1b")
+    del step_logits
+
+    # One step's launches, host syncs and device time: 8 more steps from
+    # position 2048 (the cache's later slots are masked off), the attention
+    # over the cache in a named span.
+    step = make_decode_step(cfg)
+    tok_in = gen[:, :1].contiguous()
+    pos = [torch.full((b, 1), s + i, device=dev) for i in range(8)]
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        step(model, tok_in, pos[0], cache)
+        torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+
+    def profiled(fn, n: int) -> dict:
+        """``fn`` run n times under torch.profiler, the attention (over the
+        cache in decode, the chunked route in prefill) in a named span."""
+        originals = {name: getattr(attn, name) for name in ("_sdpa", "_sdpa_chunked")}
+
+        def span(f):
+            def wrapped(*a, **kw):
+                with record_function("decode.attention"):
+                    return f(*a, **kw)
+            return wrapped
+
+        try:
+            for name, f in originals.items():
+                setattr(attn, name, span(f))
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for i in range(n):
+                    fn(i)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            for name, f in originals.items():
+                setattr(attn, name, f)
+        return decode_split(prof, wall, n)
+
+    split = profiled(lambda i: step(model, tok_in, pos[i], cache), 8)
+    prefill_step = make_prefill_step(cfg)
+    p_split = profiled(lambda i: prefill_step(model, prompt, cache), 1)
+    print(f"decode tinyllama-1.1b prefill profile (B={b}, S={s}, warm): {json.dumps(p_split)}")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"decode tinyllama-1.1b step profile (B={b}, positions {s}-{s + 7}): "
+          f"{json.dumps(split)}; host syncs of one step (sync debug mode): {syncs}; peak "
+          f"memory {gb(peak)}")
+    if syncs or split["host_syncs_a_step"]:
+        fail(f"decode tinyllama-1.1b: one step synced the host {syncs} times (debug mode), "
+             f"{split['host_syncs_a_step']} (profile)")
+    print("decode summary " + json.dumps({
+        "prefill_ms": t_prefill * 1e3, "prefill_tokens_s": b * s / t_prefill,
+        "prefill_bound_ms": p_bound, "step_ms_median": percentile(ms, 0.5),
+        "step_ms_p99": percentile(ms, 0.99), "decode_tokens_s": b * DECODE_STEPS / t_decode,
+        "step_bound_ms_mean": d_mean, "launches_a_step": split["launches_a_step"],
+        "host_syncs_a_step": split["host_syncs_a_step"], "idle_share": split["idle_share"],
+        "cache_bytes": cache_bytes, "peak_memory_bytes": peak}))
+    del model, cache, fed, gen, prompt, pos, tok_in, step
+    release()
+
+    # ---------------------------------------------------------------- (2)
+    cfg = get_config("mixtral-8x22b").replace(n_layers=2)
+    torch.cuda.reset_peak_memory_stats()
+    model = init_params(cfg, 0)
+    rng = np.random.default_rng(5)
+    prompt = torch.tensor(rng.integers(0, cfg.vocab_size, (1, RING_PROMPT)).astype(np.int32),
+                          device=dev)
+    orig_route = mlp_mod._route
+    dropped = []
+
+    def count_drops(p, c, x):
+        res = orig_route(p, c, x)
+        dropped.append((~res[3]).sum())  # on the card: no host sync in the timed steps
+        return res
+
+    mlp_mod._route = count_drops
+    try:
+        reset_counts()
+        fed, step_logits, gen, ms, t_prefill, t_decode, cache = greedy(
+            cfg, model, prompt, RING_PROMPT + RING_STEPS, RING_STEPS, "mixtral-8x22b (2 layers)")
+        c = counts()
+        if c != expect():
+            fail(f"decode mixtral: kernels of the port launched {c}; the decode path has none")
+        pos_c = cache["layers"]["pos"]
+        if pos_c.shape[1] != cfg.sliding_window or int(pos_c.max()) != RING_PROMPT + RING_STEPS - 1:
+            fail(f"decode mixtral: the ring holds {pos_c.shape[1]} slots up to position "
+                 f"{int(pos_c.max())}")
+        window = [int(x) for x in pos_c[0].sort().values[[0, -1]]]
+        n_prefill = len(dropped)
+        teacher_check(cfg, model, fed, step_logits, gen, RING_PROMPT, 0.5,
+                      "mixtral-8x22b (2 layers)")
+    finally:
+        mlp_mod._route = orig_route
+    drops = lambda calls: int(sum(calls)) if calls else 0
+    print(f"decode mixtral-8x22b (2 layers): the ring's {cfg.sliding_window} slots hold "
+          f"positions {window[0]}-{window[1]}; dropped (token, choice) pairs: prefill "
+          f"{drops(dropped[cfg.n_layers:2 * cfg.n_layers])} (each of the two), decode "
+          f"{drops(dropped[2 * cfg.n_layers:n_prefill])}, "
+          f"teacher-forced pass {drops(dropped[n_prefill:])}; peak memory "
+          f"{gb(torch.cuda.max_memory_allocated())}")
+    del model, cache, fed, gen, prompt, step_logits
+    release()
+
+    # ---------------------------------------------------------------- (3)
+    seen = []
+
+    def spy(p, c, x):
+        res = orig_route(p, c, x)
+        seen.append(res[1].cpu())
+        return res
+
+    def run(cfg, m, d, tokens, frontend, s_pre, steps):
+        """Prefill s_pre tokens, then ``steps`` decode steps, on device d:
+        (logits, each on the CPU, the cache on the CPU, router choices)."""
+        seen.clear()
+        with torch.no_grad():
+            cache = init_cache(cfg, tokens.shape[0], s_pre + steps, device=d)
+            lg, cache = prefill(cfg, m, tokens[:, :s_pre].to(d), cache,
+                                frontend=None if frontend is None else frontend.to(d))
+            out = [lg.cpu()]
+            for t in range(s_pre, s_pre + steps):
+                pos = torch.full((tokens.shape[0], 1), t, device=d)
+                lg, cache = decode_step(cfg, m, tokens[:, t:t + 1].to(d), pos, cache)
+                out.append(lg.cpu())
+        flat = []
+
+        def leaves(tree, path=""):
+            if isinstance(tree, dict):
+                for k in sorted(tree):
+                    leaves(tree[k], f"{path}.{k}")
+            else:
+                flat.append((path[1:], tree.cpu()))
+
+        leaves(cache)
+        return out, flat, list(seen)
+
+    def card_vs_cpu(cfg, card, host, label, s_pre, steps) -> None:
+        rng = np.random.default_rng(1)
+        tokens = torch.tensor(rng.integers(0, cfg.vocab_size, (2, s_pre + steps)))
+        frontend = None
+        if cfg.n_frontend_tokens:
+            frontend = torch.tensor(rng.standard_normal(
+                (2, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32))
+        mlp_mod._route = spy
+        try:
+            t0 = time.perf_counter()
+            lg_card, c_card, r_card = run(cfg, card, dev, tokens, frontend, s_pre, steps)
+            w_card = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            lg_cpu, c_cpu, r_cpu = run(cfg, host, torch.device("cpu"), tokens, frontend,
+                                       s_pre, steps)
+            w_cpu = time.perf_counter() - t0
+        finally:
+            mlp_mod._route = orig_route
+        v = cfg.vocab_size
+        err_lg = [float((a[..., :v] - b[..., :v]).abs().max()) for a, b in zip(lg_card, lg_cpu)]
+        err_c, bad = 0.0, []
+        for (k, a), (k2, b) in zip(c_card, c_cpu):
+            if k != k2 or a.shape != b.shape or a.dtype != b.dtype:
+                fail(f"decode card vs CPU {label}: cache leaf {k} {tuple(a.shape)} {a.dtype} "
+                     f"!= {k2} {tuple(b.shape)} {b.dtype}")
+            if k.endswith("pos"):
+                if not torch.equal(a, b):
+                    bad.append(k)
+            elif a.numel():
+                err_c = max(err_c, float((a - b).abs().max()))
+                if not torch.allclose(a, b, rtol=2e-4, atol=2e-4):
+                    bad.append(k)
+        same_idx = len(r_card) == len(r_cpu) and all(
+            torch.equal(a, b) for a, b in zip(r_card, r_cpu))
+        print(f"decode card vs CPU {label}: logits max abs err prefill {err_lg[0]:.3e}, steps "
+              + " ".join(f"{e:.1e}" for e in err_lg[1:]) + f"; cache leaves max abs err "
+              f"{err_c:.3e} ({len(c_card)} leaves)"
+              + (f", router choices equal: {same_idx}" if cfg.moe else "")
+              + f"; card {w_card:.2f} s, CPU {w_cpu:.2f} s")
+        for a, b in zip(lg_card, lg_cpu):
+            if not torch.allclose(a[..., :v], b[..., :v], rtol=2e-4, atol=2e-4):
+                fail(f"decode card vs CPU {label}: logits max abs err {max(err_lg)} > 2e-4")
+        if bad:
+            fail(f"decode card vs CPU {label}: cache leaves {bad} differ beyond 2e-4 (pos: equal)")
+        if cfg.moe and not same_idx:
+            fail(f"decode card vs CPU {label}: the routers' choices differ")
+
+    for name in sorted(REGISTRY):
+        base = get_config(name)
+        cut = {"n_layers": base.group_size}
+        if base.encoder_layers:
+            cut["encoder_layers"] = 1
+        cfg = base.replace(param_dtype="float32", **cut)
+        card = init_params(cfg, 0)
+        host = copy.deepcopy(card).to("cpu")
+        label = (f"{name} (float32, {cfg.n_layers} layers"
+                 + (", 1 encoder layer" if base.encoder_layers else ""))
+        if cfg.family == "ssm":
+            card_vs_cpu(cfg, card, host, label + f", S {SLSTM_STEPS} + {SLSTM_STEPS} steps, B 2)",
+                        SLSTM_STEPS, SLSTM_STEPS)
+            dh = cfg.d_model // cfg.n_heads
+            for m in (card, host):
+                for group in m.layers:
+                    group.slstm.cell.r.mul_((cfg.n_heads / dh) ** 0.5)
+            label += ", sLSTM r at fan-in dh"
+        card_vs_cpu(cfg, card, host, label + f", S {PARITY_PROMPT} + {PARITY_STEPS} steps, B 2)",
+                    PARITY_PROMPT, PARITY_STEPS)
+        del card, host
+        release()
+    print(f"decode phase wall: {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> None:
@@ -2092,6 +2548,9 @@ def main() -> None:
 
     # ------------------------------------------------------------ 4g. the model families
     families_phase(dev, reset_counts, counts, expect, launches, enc_docs, key)
+
+    # ------------------------------------------------------------ 4h. prefill and decode
+    decode_phase(dev, reset_counts, counts, expect)
 
     # ------------------------------------------------------------ 5. timing
     op, mask, rd = operands(READS, k_solve)

@@ -2,7 +2,7 @@
 the paper's own sentence-encoder.  One frozen dataclass; families select
 block patterns.  A copy of ``repro.configs.base``: ``dtype`` is a
 ``torch.dtype``.  The registry holds every config; ``repro_torch.models``
-runs every family in train mode."""
+runs every family in train, prefill and decode mode."""
 
 from __future__ import annotations
 

@@ -9,9 +9,11 @@ from repro_torch.core.formulation import (  # noqa: F401
     improved_ising,
     ising_energy,
     original_ising,
+    qubo_energy,
     qubo_improved,
     qubo_original,
     qubo_to_ising,
+    selection_to_spins,
     spins_to_selection,
 )
 from repro_torch.core.kofn import kofn_bias, rebalance_ising, rebalance_qubo  # noqa: F401

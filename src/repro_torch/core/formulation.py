@@ -123,6 +123,12 @@ def es_objective(problem: EsProblem, x: torch.Tensor) -> torch.Tensor:
     return lin - problem.lam * quad
 
 
+def qubo_energy(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """H(x) = x^T Q x, batched over leading dims of x."""
+    x = _f32(x)
+    return torch.einsum("...i,ij,...j->...", x, _f32(q), x)
+
+
 def ising_energy(h: torch.Tensor, j: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """H(s) = h.s + s^T J s, batched over leading dims of s."""
     s = _f32(s)
@@ -252,6 +258,14 @@ def qubo_to_ising(qubo: QuboProblem) -> IsingProblem:
     return IsingProblem(h=h, j=off / 4.0)
 
 
+def ising_offset(qubo: QuboProblem) -> float:
+    """Constant c with H_qubo(x) = H_ising(s) + c under x = (1+s)/2 (host
+    numpy in float64, as in the reference)."""
+    q = _f32(qubo.q).detach().cpu().numpy().astype(np.float64)
+    off = q * (1.0 - np.eye(qubo.n))
+    return float(np.diag(q).sum() / 2.0 + off.sum() / 4.0)
+
+
 def original_ising(problem: EsProblem, gamma: Optional[float] = None) -> IsingProblem:
     """Eq. (9): Ising form of the original QUBO."""
     return qubo_to_ising(qubo_original(problem, gamma=gamma))
@@ -269,3 +283,8 @@ def improved_ising(
 def spins_to_selection(s: torch.Tensor) -> torch.Tensor:
     """s in {-1,+1} -> x in {0,1} (int32)."""
     return torch.div(s.to(torch.int32) + 1, 2, rounding_mode="floor")
+
+
+def selection_to_spins(x: torch.Tensor) -> torch.Tensor:
+    """x in {0,1} -> s in {-1,+1} (float32)."""
+    return (2 * torch.as_tensor(x) - 1).to(torch.float32)

@@ -44,6 +44,14 @@ class QuantizedIsing:
     scale: float  # fp_coeff ~= int_coeff / scale
 
 
+def joint_scale(ising: IsingProblem, int_range: int) -> float:
+    """Single scale mapping max(|h|, |J|) onto the integer range: the float32
+    division of ``_quantize_many`` (one host sync)."""
+    m = torch.maximum(ising.h.abs().max(), ising.j.abs().max()).to(torch.float32)
+    return float(torch.full((), float(int_range), dtype=torch.float32, device=m.device)
+                 / torch.clamp(m, min=1e-12))
+
+
 def _round(v: torch.Tensor, scheme: str, u: Optional[torch.Tensor]) -> torch.Tensor:
     """Round ``v`` with the uniforms ``u`` (K, *v.shape), one row per
     rounding; ``deterministic`` takes none and returns v's shape."""

@@ -37,12 +37,16 @@ class HashedBowEncoder:
         # eviction only costs a recompute.
         self.cache_words = max(0, cache_words)
         self._word_cache: OrderedDict[str, np.ndarray] = OrderedDict()
+        self._hits = 0
+        self._misses = 0
 
     def _word_vec(self, word: str) -> np.ndarray:
         v = self._word_cache.get(word)
         if v is not None:
+            self._hits += 1
             self._word_cache.move_to_end(word)
             return v
+        self._misses += 1
         h = hashlib.blake2b(f"{self.seed}:{word}".encode(), digest_size=8).digest()
         rng = np.random.default_rng(int.from_bytes(h, "little"))
         v = rng.standard_normal(self.dim)
@@ -52,6 +56,17 @@ class HashedBowEncoder:
             while len(self._word_cache) > self.cache_words:
                 self._word_cache.popitem(last=False)
         return v
+
+    def cache_stats(self) -> dict:
+        """Word-vector cache health (surfaced by ``engine.stats()``)."""
+        total = self._hits + self._misses
+        return {
+            "size": len(self._word_cache),
+            "capacity": self.cache_words,
+            "hits": self._hits,
+            "misses": self._misses,
+            "hit_rate": self._hits / total if total else 0.0,
+        }
 
     def encode(self, sentences: Sequence[str]) -> torch.Tensor:
         """(len(sentences), dim) float32 unit rows on the CPU."""

@@ -1,1 +1,1 @@
-"""Entry points of the port: the serving launcher."""
+"""Entry points of the port: the serving launcher and the step makers."""

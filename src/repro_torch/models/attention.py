@@ -1,13 +1,20 @@
-"""Attention in train mode: twins of ``repro.models.attention`` (GQA /
-MQA, QKV bias, sliding window, RoPE, cross-attention gated or not).
+"""Attention: twins of ``repro.models.attention`` (GQA / MQA, QKV bias,
+sliding window, RoPE, cross-attention gated or not, full and ring-buffer
+KV caches).
 
-Self-attention takes three routes, chosen as the reference chooses them
-(``self_attention``): the flash kernel (``cfg.attn_impl == "flash"``,
-``kernels/ops.py``), the chunked online softmax (``_sdpa_chunked``,
-"auto" at S a multiple of ``cfg.attn_chunk`` above it), and the naive
-softmax (``_sdpa``).  Cross-attention takes the naive softmax with no
-mask, as the reference's does.  Prefill and decode caches are not ported
-yet.
+Self-attention takes three routes in train and prefill mode, chosen as the
+reference chooses them (``self_attention``): the flash kernel
+(``cfg.attn_impl == "flash"``, ``kernels/ops.py``; train mode only, as in
+the reference), the chunked online softmax (``_sdpa_chunked``, "auto" at S
+a multiple of ``cfg.attn_chunk`` above it), and the naive softmax
+(``_sdpa``).  Decode attends with the naive softmax over every cache slot.
+Cross-attention takes the naive softmax with no mask, as the reference's
+does.
+
+Cache protocol: a dict {"k": (B, S_c, KV, hd), "v": ..., "pos": (S_c,)
+int32 absolute position per slot, -1 = empty}.  Full caches have S_c =
+max_len; sliding-window caches are rings of S_c = min(max_len, window)
+slots.  Prefill and decode write the cache given in place and return it.
 """
 
 from __future__ import annotations
@@ -16,8 +23,9 @@ from typing import Optional
 
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
-from repro_torch.models.common import apply_rope, not_ported, param
+from repro_torch.models.common import apply_rope, param
 
 NEG_INF = -1e30
 
@@ -40,6 +48,19 @@ class Attention(torch.nn.Module):
             self.bv = param(gen, (kv * hd,), dt, fill=0.0)
         if cross:
             self.gate = param(gen, (), torch.float32, fill=0.0)
+
+
+def init_cache(cfg, batch: int, max_len: int, dtype, device=None) -> dict:
+    """An empty cache on ``device`` (``None``: the card): k and v zeros of
+    ``dtype``, every slot's position -1."""
+    device = resolve_device(device)
+    s_c = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+    shape = (batch, s_c, cfg.n_kv_heads, cfg.hd)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "pos": torch.full((s_c,), -1, dtype=torch.int32, device=device),
+    }
 
 
 def _project_qkv(p: Attention, cfg, x, kv_src):
@@ -113,10 +134,17 @@ def _sdpa_chunked(q, k, v, positions, scale, *, causal, window, chunk, probs_dty
 
 
 def self_attention(p: Attention, cfg, x, positions, *, mode: str = "train",
-                   causal: bool = True) -> torch.Tensor:
-    """Train-mode self-attention of x (B, S, d) at positions (B, S)."""
-    if mode != "train":
-        raise not_ported(f"attention mode {mode!r}", "queue 1: prefill and decode caches")
+                   cache: Optional[dict] = None, causal: bool = True):
+    """Self-attention of x (B, S, d) at positions (B, S): (out, new_cache).
+
+    ``mode`` is train, prefill or decode.  Prefill writes the sequence's
+    keys and values into ``cache`` (when given) and returns it: at slot 0
+    on, or with a window and S >= S_c the last S_c at slots ``pos % S_c``
+    (the ring's tail); decode (S = 1, one position for the batch) writes
+    slot ``pos % S_c`` (window) or ``pos``, clamped into the cache as
+    ``dynamic_update_slice`` clamps it, and attends over every valid slot.
+    The slot is computed on the device: no host sync.  Train mode returns
+    no cache."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x, x)
     q = apply_rope(q, positions, cfg.rope_theta)
@@ -126,26 +154,65 @@ def self_attention(p: Attention, cfg, x, positions, *, mode: str = "train",
     probs_dtype = torch.bfloat16 if cfg.attn_probs_bf16 else None
     chunk = cfg.attn_chunk
     impl = cfg.attn_impl
-    # The flash kernel derives positions from block indices, which matches
-    # the contiguous positions of train/encode calls, and the sequence must
-    # tile into its blocks; the encoder stage's power-of-two length buckets
-    # satisfy both by construction.
-    if impl == "flash" and s % min(128, s) == 0 and q.shape[-1] <= 128:
-        out = ops.flash_attention(q, k, v, causal=causal, window=w)
-    elif impl != "sdpa" and chunk and s % chunk == 0 and s > chunk:
-        out = _sdpa_chunked(q, k, v, positions, scale, causal=causal, window=w, chunk=chunk,
-                            probs_dtype=probs_dtype)
-    else:
-        q_pos = positions[:, :, None]  # (B, S, 1)
-        k_pos = positions[:, None, :]  # (B, 1, S)
-        if causal:
-            mask = k_pos <= q_pos
+
+    if mode in ("train", "prefill"):
+        # The flash kernel: train mode only (it derives positions from block
+        # indices, which matches the contiguous positions of train/encode
+        # calls but not a prefill continuation), and the sequence must tile
+        # into its blocks; the encoder stage's power-of-two length buckets
+        # satisfy both by construction.
+        if impl == "flash" and mode == "train" and s % min(128, s) == 0 and q.shape[-1] <= 128:
+            out = ops.flash_attention(q, k, v, causal=causal, window=w)
+        elif impl != "sdpa" and chunk and s % chunk == 0 and s > chunk:
+            out = _sdpa_chunked(q, k, v, positions, scale, causal=causal, window=w,
+                                chunk=chunk, probs_dtype=probs_dtype)
         else:
-            mask = torch.ones((b, s, s), dtype=torch.bool, device=x.device)
-        if w is not None and causal:
-            mask &= k_pos > q_pos - w
-        out = _sdpa(q, k, v, mask, scale, probs_dtype=probs_dtype)
-    return out.reshape(b, s, -1) @ p.wo
+            q_pos = positions[:, :, None]  # (B, S, 1)
+            k_pos = positions[:, None, :]  # (B, 1, S)
+            if causal:
+                mask = k_pos <= q_pos
+            else:
+                mask = torch.ones((b, s, s), dtype=torch.bool, device=x.device)
+            if w is not None and causal:
+                mask &= k_pos > q_pos - w
+            out = _sdpa(q, k, v, mask, scale, probs_dtype=probs_dtype)
+        new_cache = None
+        if mode == "prefill" and cache is not None:
+            s_c = cache["k"].shape[1]
+            if w is not None and s >= s_c:
+                # Keep the last S_c keys, slot = pos % S_c.
+                tail_pos = positions[0, -s_c:]
+                slots = (tail_pos % s_c).long()
+                cache["k"].index_copy_(1, slots, k[:, -s_c:].to(cache["k"].dtype))
+                cache["v"].index_copy_(1, slots, v[:, -s_c:].to(cache["v"].dtype))
+                cache["pos"].index_copy_(0, slots, tail_pos.to(torch.int32))
+            else:
+                if s > s_c:
+                    raise ValueError(f"a prefill of {s} tokens does not fit a cache of {s_c} "
+                                     "slots without a sliding window")
+                cache["k"][:, :s] = k
+                cache["v"][:, :s] = v
+                cache["pos"][:s] = positions[0]
+            new_cache = cache
+        return out.reshape(b, s, -1) @ p.wo, new_cache
+
+    # ---- decode: s == 1, write kv at slot, attend over the cache ----
+    if mode != "decode" or cache is None or s != 1:
+        raise ValueError(f"self_attention: mode {mode!r} with S {s} "
+                         f"{'and' if cache is not None else 'without'} a cache")
+    s_c = cache["k"].shape[1]
+    pos0 = positions[0, :1]  # (1,): one position for the whole batch (batched serve)
+    slot = (pos0 % s_c if w is not None else torch.clamp(pos0, 0, s_c - 1)).long()
+    cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
+    cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
+    cache["pos"].index_copy_(0, slot, pos0.to(torch.int32))
+    cpos = cache["pos"]
+    valid = (cpos >= 0) & (cpos <= pos0)
+    if w is not None:
+        valid &= cpos > pos0 - w
+    mask = valid[None, None, :].expand(b, 1, s_c)
+    out = _sdpa(q, cache["k"], cache["v"], mask, scale, probs_dtype=probs_dtype)
+    return out.reshape(b, 1, -1) @ p.wo, cache
 
 
 def cross_attention(p: Attention, cfg, x, memory, *, gated: bool = False) -> torch.Tensor:

@@ -108,11 +108,46 @@ def sinusoidal_positions(seq: int, dim: int, dtype=torch.float32, device=None) -
     return emb.to(dtype)
 
 
-def causal_conv1d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv in train mode: x (B, S, C), w (K, C), a zero left
-    pad of K - 1 steps.  The decode state waits for the caches (ROADMAP
-    queue 1: prefill and decode caches)."""
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor, state: Optional[torch.Tensor] = None):
+    """Depthwise causal conv.  x: (B, S, C), w: (K, C).  Returns (y, new_state):
+    ``state`` (B, K - 1, C) is the left pad (zeros when None), and
+    ``new_state`` the last K - 1 rows of the padded input, the next call's
+    pad (zeros at K = 1)."""
     k = w.shape[0]
-    pad = torch.zeros(x.shape[:1] + (k - 1,) + x.shape[2:], dtype=x.dtype, device=x.device)
+    if state is None:
+        pad = torch.zeros(x.shape[:1] + (k - 1,) + x.shape[2:], dtype=x.dtype, device=x.device)
+    else:
+        pad = state.to(x.dtype)
     xp = torch.cat([pad, x], dim=1)  # (B, S+K-1, C)
-    return sum(xp[:, i:i + x.shape[1]] * w[i][None, None, :] for i in range(k))
+    y = sum(xp[:, i:i + x.shape[1]] * w[i][None, None, :] for i in range(k))
+    new_state = xp[:, -(k - 1):] if k > 1 else torch.zeros_like(pad)
+    return y, new_state
+
+
+def tree_map(fn, tree):
+    """``fn`` on every tensor leaf of a nested dict (a cache tree)."""
+    if isinstance(tree, dict):
+        return {name: tree_map(fn, sub) for name, sub in tree.items()}
+    return fn(tree)
+
+
+def stack_tree(tree, n: int):
+    """The tree with a new leading axis of n copies of each leaf (fresh
+    storage), as the reference stacks ``[x] * n``."""
+    return tree_map(lambda x: torch.stack([x] * n), tree)
+
+
+def index_tree(tree, i: int):
+    """The i-th entry of each leaf's leading axis: views, so that a layer
+    writes its own slice of the stacked cache in place."""
+    return None if tree is None else tree_map(lambda x: x[i], tree)
+
+
+def write_cache(cache: Optional[dict], new: dict) -> dict:
+    """Copy ``new``'s leaves into ``cache``'s in place and return ``cache``;
+    with no cache, ``new`` itself."""
+    if cache is None:
+        return new
+    for name, leaf in new.items():
+        cache[name].copy_(leaf)
+    return cache

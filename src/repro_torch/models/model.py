@@ -1,6 +1,6 @@
-"""Model assembly, every family of the registry in train mode: twins of
-``repro.models.model``'s ``init_params``, ``forward``, ``encode`` and
-``embed_sentences``.
+"""Model assembly, every family of the registry: twins of
+``repro.models.model``'s ``init_params``, ``init_cache``, ``forward``,
+``prefill``, ``decode_step``, ``encode`` and ``embed_sentences``.
 
 The reference stacks its layers as pytrees with a leading ``n_groups``
 axis (and a second axis for a group's repeated sub-blocks) and scans over
@@ -21,10 +21,21 @@ The modules hold parameters; the functions apply them, so one model serves
 several configs that differ only in how they compute (``attn_impl``,
 ``moe_impl``).
 
+The cache keeps the reference's tree and its stacked axes: every leaf under
+``cache["layers"]`` has a leading ``n_groups`` axis, and a group's repeated
+sub-blocks (vlm ``self``, hybrid ``mamba``, ssm ``mlstm``) a second one.
+Each layer reads and writes its own view of those tensors in place, so a
+decode step allocates no cache: ``prefill`` and ``decode_step`` consume the
+cache they are given and return it, updated (clone it first to keep the
+old one).
+
 Entry points:
   init_params(cfg, seed, device=None) -> Model
-  forward(cfg, model, tokens, positions=None, mode="train", frontend=None,
-          return_hidden=False) -> (logits or hidden, None, aux)
+  init_cache(cfg, batch, max_len, dtype=None, device=None) -> cache
+  forward(cfg, model, tokens, positions=None, mode="train", cache=None,
+          frontend=None, return_hidden=False) -> (logits or hidden, cache, aux)
+  prefill(cfg, model, tokens, cache, frontend=None) -> (logits, cache)
+  decode_step(cfg, model, tokens, positions, cache) -> (last logits, cache)
   encode(cfg, model, frontend) -> encoder states (encdec)
   embed_sentences(cfg, model, tokens, seg_ids, n_segments, frontend=None)
 """
@@ -40,7 +51,13 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import ssd, xlstm
-from repro_torch.models.common import RMSNorm, not_ported, param, rmsnorm
+from repro_torch.models.common import (
+    RMSNorm,
+    index_tree,
+    param,
+    rmsnorm,
+    stack_tree,
+)
 
 # ---------------------------------------------------------------------------
 # Blocks
@@ -71,14 +88,20 @@ class Block(torch.nn.Module):
             self.ffn_gate = param(gen, (), torch.float32, fill=0.0)
 
 
-def _attn_block_apply(p: Block, cfg, x, positions, *, memory=None, cross=False, causal=True):
-    """(x, aux): the block's residual update and its router aux loss."""
+def _attn_block_apply(p: Block, cfg, x, positions, *, mode="train", cache=None, memory=None,
+                      cross=False, causal=True):
+    """(x, aux): the block's residual update and its router aux loss.  In
+    prefill and decode the self-attention writes ``cache`` (this block's
+    views) in place; a cross layer keeps none (memory is static), and a
+    non-causal block (the encoder's) runs in train mode unless decoding."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rmsnorm(p.attn_norm.scale, x, eps=cfg.norm_eps)
     if cross:
         a = attn.cross_attention(p.attn, cfg, h, memory, gated=True)
     else:
-        a = attn.self_attention(p.attn, cfg, h, positions, causal=causal)
+        mode_eff = "train" if (not causal and mode != "decode") else mode
+        a, _ = attn.self_attention(p.attn, cfg, h, positions, mode=mode_eff, cache=cache,
+                                   causal=causal)
     x = x + a
     if hasattr(p, "cross_attn"):  # enc-dec decoder block
         h = rmsnorm(p.cross_norm.scale, x, eps=cfg.norm_eps)
@@ -105,9 +128,12 @@ class MixerBlock(torch.nn.Module):
         setattr(self, name, mixer_cls(cfg, gen))
 
 
-def _mixer_block_apply(p: MixerBlock, cfg, x, name: str, apply_fn):
+def _mixer_block_apply(p: MixerBlock, cfg, x, name: str, apply_fn, *, mode, cache):
+    """The mixer's residual update; in prefill and decode the mixer writes
+    ``cache`` (its views) in place."""
     h = rmsnorm(p.norm.scale, x, eps=cfg.norm_eps)
-    return x + apply_fn(getattr(p, name), cfg, h)
+    y, _ = apply_fn(getattr(p, name), cfg, h, mode=mode, cache=cache)
+    return x + y
 
 
 # ---------------------------------------------------------------------------
@@ -145,30 +171,76 @@ def _group_init(cfg, gen):
     raise ValueError(f"unknown model family {fam!r}")
 
 
-def _group_apply(cfg, gp, shared, x, positions, memory):
-    """Apply one super-block: (x, aux)."""
+def _group_apply(cfg, gp, shared, x, positions, *, mode, cache, memory):
+    """Apply one super-block: (x, aux).  ``cache`` is this group's views
+    (None in train mode); each sub-block takes its own."""
     fam = cfg.family
     if fam in ("dense", "moe", "encdec"):
-        return _attn_block_apply(gp, cfg, x, positions, memory=memory)
+        return _attn_block_apply(gp, cfg, x, positions, mode=mode, cache=cache, memory=memory)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    parts = {} if cache is None else cache
     if fam == "vlm":
-        for blk in gp.self:
-            x, a = _attn_block_apply(blk, cfg, x, positions)
+        for j, blk in enumerate(gp.self):
+            x, a = _attn_block_apply(blk, cfg, x, positions, mode=mode,
+                                     cache=index_tree(parts.get("self"), j))
             aux = aux + a
-        x, a = _attn_block_apply(gp.cross, cfg, x, positions, memory=memory, cross=True)
+        x, a = _attn_block_apply(gp.cross, cfg, x, positions, mode=mode,
+                                 cache=parts.get("cross"), memory=memory, cross=True)
         return x, aux + a
     if fam == "hybrid":
-        for blk in gp.mamba:
-            x = _mixer_block_apply(blk, cfg, x, "mixer", ssd.mamba2_apply)
-        # Shared attention block (zamba2): one weight set reused per group.
-        x, a = _attn_block_apply(shared["attn"], cfg, x, positions)
+        for j, blk in enumerate(gp.mamba):
+            x = _mixer_block_apply(blk, cfg, x, "mixer", ssd.mamba2_apply, mode=mode,
+                                   cache=index_tree(parts.get("mamba"), j))
+        # Shared attention block (zamba2): one weight set reused per group,
+        # each group with its own cache.
+        x, a = _attn_block_apply(shared["attn"], cfg, x, positions, mode=mode,
+                                 cache=parts.get("shared_attn"))
         return x, aux + a
     if fam == "ssm":
-        for blk in gp.mlstm:
-            x = _mixer_block_apply(blk, cfg, x, "mixer", xlstm.mlstm_apply)
-        x = _mixer_block_apply(gp.slstm, cfg, x, "cell", xlstm.slstm_apply)
+        for j, blk in enumerate(gp.mlstm):
+            x = _mixer_block_apply(blk, cfg, x, "mixer", xlstm.mlstm_apply, mode=mode,
+                                   cache=index_tree(parts.get("mlstm"), j))
+        x = _mixer_block_apply(gp.slstm, cfg, x, "cell", xlstm.slstm_apply, mode=mode,
+                               cache=parts.get("slstm"))
         return x, aux
     raise ValueError(f"unknown model family {fam!r}")
+
+
+# ---------------------------------------------------------------------------
+# Cache construction (mirrors the group structure; leading axis n_groups)
+# ---------------------------------------------------------------------------
+
+
+def _group_cache_init(cfg, batch, max_len, dtype, device):
+    fam, g = cfg.family, cfg.group_size
+    if fam in ("dense", "moe", "encdec"):
+        return attn.init_cache(cfg, batch, max_len, dtype, device)
+    if fam == "vlm":
+        return {"self": stack_tree(attn.init_cache(cfg, batch, max_len, dtype, device), g - 1),
+                "cross": torch.zeros((0,), dtype=dtype, device=device)}  # cacheless
+    if fam == "hybrid":
+        return {"mamba": stack_tree(ssd.mamba2_cache_init(cfg, batch, dtype, device), g),
+                "shared_attn": attn.init_cache(cfg, batch, max_len, dtype, device)}
+    if fam == "ssm":
+        return {"mlstm": stack_tree(xlstm.mlstm_cache_init(cfg, batch, dtype, device), g - 1),
+                "slstm": xlstm.slstm_cache_init(cfg, batch, dtype, device)}
+    raise ValueError(f"unknown model family {fam!r}")
+
+
+def init_cache(cfg, batch: int, max_len: int, dtype=None, device=None) -> dict:
+    """An empty prefill / decode cache for ``batch`` rows of up to
+    ``max_len`` tokens (a ring of ``sliding_window`` slots where the config
+    has one), of ``dtype`` (default the config's; SSM states float32) on
+    ``device`` (``None``: the card; raises without one).  vlm and encdec
+    also keep the frontend or encoder states, ``memory`` (B, T, d)."""
+    device = resolve_device(device)
+    dtype = dtype or cfg.dtype
+    one = _group_cache_init(cfg, batch, max_len, dtype, device)
+    cache = {"layers": stack_tree(one, cfg.n_groups)}
+    if cfg.family in ("vlm", "encdec"):
+        cache["memory"] = torch.zeros((batch, cfg.n_frontend_tokens, cfg.d_model), dtype=dtype,
+                                      device=device)
+    return cache
 
 
 # ---------------------------------------------------------------------------
@@ -222,13 +294,6 @@ class Model(torch.nn.Module):
             self.encoder = Encoder(cfg, gen)
 
 
-def check_ported(cfg, mode: str = "train") -> None:
-    """Raise for what the port's model stack cannot run yet: every family
-    runs in train mode only."""
-    if mode != "train":
-        raise not_ported(f"mode {mode!r} of {cfg.name}", "queue 1: prefill and decode caches")
-
-
 def init_params(cfg, seed: int, device=None) -> Model:
     """A freshly initialised model on ``device`` (``None``: the card; raises
     without one), drawn from a ``torch.Generator`` seeded with ``seed``.  The
@@ -248,6 +313,9 @@ def _logits(cfg, model: Model, x: torch.Tensor) -> torch.Tensor:
     return torch.where(pad_mask, logits.to(torch.float32), -1e30)
 
 
+MODES = ("train", "prefill", "decode")
+
+
 def forward(
     cfg,
     model: Model,
@@ -255,32 +323,67 @@ def forward(
     positions: Optional[torch.Tensor] = None,  # (B, S)
     *,
     mode: str = "train",
+    cache: Optional[dict] = None,
     frontend: Optional[torch.Tensor] = None,  # (B, T, d) vlm / audio stub embeddings
     return_hidden: bool = False,
-) -> Tuple[torch.Tensor, None, torch.Tensor]:
+) -> Tuple[torch.Tensor, Optional[dict], torch.Tensor]:
     """(logits (B, S, padded vocab) float32, or the last group's hidden
-    states (B, S, d) with ``return_hidden``; no cache; aux, the summed
-    router aux loss of the MoE layers, float32)."""
-    check_ported(cfg, mode)
+    states (B, S, d) with ``return_hidden``; the cache, updated in place,
+    in prefill and decode (None in train mode); aux, the summed router aux
+    loss of the MoE layers, float32).  vlm / encdec memory comes from the
+    frontend (encoded, for encdec) in train and prefill, where prefill also
+    stores it in the cache, and from ``cache["memory"]`` in decode."""
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}; want one of {MODES}")
+    if mode != "train" and cache is None:
+        raise ValueError(f"{mode} needs a cache from init_cache")
     b, s = tokens.shape
     if positions is None:
         positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
     # The scale is rounded to the working type first, as the reference's
-    # jnp.asarray(d_model**0.5, dtype) is (27.71 -> 27.75 in bf16).
-    x = model.embed[tokens.long()] * torch.tensor(cfg.d_model**0.5, dtype=cfg.dtype,
-                                                   device=tokens.device)
+    # jnp.asarray(d_model**0.5, dtype) is (27.71 -> 27.75 in bf16); a CPU
+    # 0-dim tensor is passed to the kernel as a scalar (no copy to the card).
+    x = model.embed[tokens.long()] * torch.tensor(cfg.d_model**0.5, dtype=cfg.dtype)
     memory = None
     if cfg.family in ("vlm", "encdec"):
-        if frontend is None:
-            raise ValueError(f"{cfg.name}: vlm/encdec need frontend embeddings")
-        memory = encode(cfg, model, frontend) if cfg.family == "encdec" else frontend
+        if mode == "decode":
+            memory = cache["memory"]
+        else:
+            if frontend is None:
+                raise ValueError(f"{cfg.name}: vlm/encdec need frontend embeddings")
+            memory = encode(cfg, model, frontend) if cfg.family == "encdec" else frontend
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for group in model.layers:
-        x, a = _group_apply(cfg, group, model.shared, x, positions, memory)
+    for i, group in enumerate(model.layers):
+        gc = None if mode == "train" else index_tree(cache["layers"], i)
+        x, a = _group_apply(cfg, group, model.shared, x, positions, mode=mode, cache=gc,
+                            memory=memory)
         aux = aux + a
+    new_cache = None
+    if mode != "train":
+        new_cache = cache
+        if memory is not None:
+            cache["memory"] = memory
     if return_hidden:
-        return x, None, aux
-    return _logits(cfg, model, x), None, aux
+        return x, new_cache, aux
+    return _logits(cfg, model, x), new_cache, aux
+
+
+def prefill(cfg, model: Model, tokens: torch.Tensor, cache: dict, *,
+            frontend: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, dict]:
+    """Run the prompt tokens (B, S) at positions 0..S-1 into ``cache``
+    (consumed: written in place and returned): (logits (B, S, V), cache)."""
+    logits, cache, _ = forward(cfg, model, tokens, mode="prefill", cache=cache,
+                               frontend=frontend)
+    return logits, cache
+
+
+def decode_step(cfg, model: Model, tokens: torch.Tensor, positions: torch.Tensor,
+                cache: dict) -> Tuple[torch.Tensor, dict]:
+    """tokens (B, 1) at positions (B, 1), the absolute position of the new
+    token (one for the batch): (logits of the last position (B, V), cache,
+    consumed: written in place and returned)."""
+    logits, cache, _ = forward(cfg, model, tokens, positions, mode="decode", cache=cache)
+    return logits[:, -1], cache
 
 
 def embed_sentences(cfg, model: Model, tokens: torch.Tensor, seg_ids: torch.Tensor,

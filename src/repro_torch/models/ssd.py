@@ -1,13 +1,12 @@
 """Chunked state-space / linear-attention core (the Mamba2 SSD algorithm)
-and the Mamba2 block (zamba2's backbone), in train mode: twins of
-``repro.models.ssd``'s ``chunked_linear_attention``, ``mamba2_init`` (the
-:class:`Mamba2` module) and ``mamba2_apply``.
+and the Mamba2 block (zamba2's backbone): twins of ``repro.models.ssd``'s
+``chunked_linear_attention``, ``linear_attention_step``, ``mamba2_init``
+(the :class:`Mamba2` module), ``mamba2_apply`` and ``mamba2_cache_init``.
 
 The SSD recurrence  S_t = exp(a_t) S_{t-1} + k_t (x) v_t,  y_t = q_t . S_t
 is evaluated chunk-parallel: quadratic attention-like products inside a
-chunk, and a loop over the chunks' states between them.  The same core
-drives the mLSTM (``xlstm.py``).  The decode step and the caches wait for
-ROADMAP queue 1 (prefill and decode caches).
+chunk, and a loop over the chunks' states between them; a decode step takes
+it one token at a time.  The same core drives the mLSTM (``xlstm.py``).
 """
 
 from __future__ import annotations
@@ -17,7 +16,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import RMSNorm, causal_conv1d, param, rmsnorm
+from repro_torch.device import resolve_device
+from repro_torch.models.common import RMSNorm, causal_conv1d, param, rmsnorm, write_cache
 
 
 def chunked_linear_attention(
@@ -79,6 +79,22 @@ def chunked_linear_attention(
     return y.to(v.dtype), state
 
 
+def linear_attention_step(
+    q: torch.Tensor,  # (B, H, N)
+    k: torch.Tensor,  # (B, H, N)
+    v: torch.Tensor,  # (B, H, P)
+    log_a: torch.Tensor,  # (B, H)
+    state: torch.Tensor,  # (B, H, N, P)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One decode step of the same recurrence: (y (B, H, P) in v's type, the
+    new state float32)."""
+    f32 = torch.float32
+    state = torch.exp(log_a.to(f32))[..., None, None] * state.to(f32) + torch.einsum(
+        "bhn,bhp->bhnp", k.to(f32), v.to(f32))
+    y = torch.einsum("bhn,bhnp->bhp", q.to(f32), state)
+    return y.to(v.dtype), state
+
+
 # ---------------------------------------------------------------------------
 # Mamba2 block
 # ---------------------------------------------------------------------------
@@ -104,8 +120,12 @@ class Mamba2(torch.nn.Module):
         self.out_proj = param(gen, (d_in, d), dt, scale=d_in**-0.5)
 
 
-def mamba2_apply(p: Mamba2, cfg, x: torch.Tensor) -> torch.Tensor:
-    """Train-mode Mamba2 mixer of x (B, S, D)."""
+def mamba2_apply(p: Mamba2, cfg, x: torch.Tensor, *, mode: str = "train",
+                 cache: Optional[dict] = None):
+    """Mamba2 mixer of x (B, S, D): (out, new_cache).  The conv state is
+    read in decode only (prefill pads with zeros); decode (S = 1) steps the
+    recurrence from ``cache["state"]``.  Prefill and decode return the new
+    {"conv", "state"}, written into ``cache`` in place when given."""
     ssm = cfg.ssm
     b, s, d = x.shape
     d_in = ssm.expand * d
@@ -115,7 +135,9 @@ def mamba2_apply(p: Mamba2, cfg, x: torch.Tensor) -> torch.Tensor:
 
     proj = x @ p.in_proj  # (B, S, 2 d_in + 2 N + H)
     z, xbc, dt_raw = torch.split(proj, [d_in, d_in + 2 * n, h], dim=-1)
-    xbc = F.silu(causal_conv1d(xbc, p.conv_w))
+    conv_state = cache["conv"] if (cache is not None and mode == "decode") else None
+    xbc, new_conv = causal_conv1d(xbc, p.conv_w, state=conv_state)
+    xbc = F.silu(xbc)
     xs, bmat, cmat = torch.split(xbc, [d_in, n, n], dim=-1)
 
     # jax.nn.softplus is logaddexp(x, 0), with no threshold (F.softplus
@@ -128,9 +150,34 @@ def mamba2_apply(p: Mamba2, cfg, x: torch.Tensor) -> torch.Tensor:
     v = xh * dt_act[..., None].to(xh.dtype)
     k = bmat[:, :, None, :].expand(b, s, h, n)  # ngroups = 1: shared by the heads
     q = cmat[:, :, None, :].expand(b, s, h, n)
-    y, _ = chunked_linear_attention(q, k, v, a, chunk=ssm.chunk)
+    if mode == "decode":
+        if cache is None or s != 1:
+            raise ValueError(f"mamba2 decode takes one token and a cache, got S {s}")
+        y1, new_state = linear_attention_step(q[:, 0], k[:, 0], v[:, 0], a[:, 0],
+                                              cache["state"])
+        y = y1[:, None]
+    else:
+        y, new_state = chunked_linear_attention(q, k, v, a, chunk=ssm.chunk)
 
     y = y + p.d_skip[None, None, :, None].to(y.dtype) * xh
     y = y.reshape(b, s, d_in)
     y = rmsnorm(p.norm.scale, y * F.silu(z), eps=cfg.norm_eps)
-    return y @ p.out_proj
+    out = y @ p.out_proj
+    new_cache = None
+    if mode in ("decode", "prefill"):
+        new_cache = write_cache(cache, {"conv": new_conv, "state": new_state})
+    return out, new_cache
+
+
+def mamba2_cache_init(cfg, batch: int, dtype, device=None) -> dict:
+    """conv (B, K - 1, d_in + 2 N) of ``dtype``, state (B, H, N, P) float32,
+    zeros, on ``device`` (``None``: the card)."""
+    device = resolve_device(device)
+    ssm = cfg.ssm
+    d_in = ssm.expand * cfg.d_model
+    n = ssm.d_state
+    h = d_in // ssm.head_dim
+    return {
+        "conv": torch.zeros((batch, ssm.d_conv - 1, d_in + 2 * n), dtype=dtype, device=device),
+        "state": torch.zeros((batch, h, n, ssm.head_dim), dtype=torch.float32, device=device),
+    }

@@ -1,12 +1,13 @@
-"""xLSTM blocks in train mode: twins of ``repro.models.xlstm``'s mLSTM
-(matrix memory, chunk-parallel through the SSD core; ``mlstm_init`` is the
-:class:`Mlstm` module, ``mlstm_apply``) and sLSTM (scalar memory with a
-hidden-to-hidden recurrence, a loop over time; :class:`Slstm`,
-``slstm_apply``).
+"""xLSTM blocks: twins of ``repro.models.xlstm``'s mLSTM (matrix memory,
+chunk-parallel through the SSD core, one step at a time in decode;
+``mlstm_init`` is the :class:`Mlstm` module, ``mlstm_apply``,
+``mlstm_cache_init``) and sLSTM (scalar memory with a hidden-to-hidden
+recurrence, a loop over time; :class:`Slstm`, ``slstm_apply``,
+``slstm_cache_init``).
 
 As in the reference, the mLSTM input gate is a clipped exponential and
 the normalizer rides the same chunked recurrence as an extra value column
-(exact).  The caches wait for ROADMAP queue 1 (prefill and decode caches).
+(exact).
 """
 
 from __future__ import annotations
@@ -16,8 +17,16 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import RMSNorm, activation, causal_conv1d, param, rmsnorm
-from repro_torch.models.ssd import chunked_linear_attention
+from repro_torch.device import resolve_device
+from repro_torch.models.common import (
+    RMSNorm,
+    activation,
+    causal_conv1d,
+    param,
+    rmsnorm,
+    write_cache,
+)
+from repro_torch.models.ssd import chunked_linear_attention, linear_attention_step
 
 # ---------------------------------------------------------------------------
 # mLSTM
@@ -46,12 +55,13 @@ class Mlstm(torch.nn.Module):
         self.out_proj = param(gen, (d_in, d), dt, scale=d_in**-0.5)
 
 
-def _mlstm_qkv_gates(p: Mlstm, cfg, x):
+def _mlstm_qkv_gates(p: Mlstm, cfg, x, conv_state=None):
     b, s, d = x.shape
     nh = cfg.n_heads
     dh = 2 * d // nh
     x_in, z = torch.chunk(x @ p.in_proj, 2, dim=-1)
-    xc = F.silu(causal_conv1d(x_in, p.conv_w))
+    xc, new_conv = causal_conv1d(x_in, p.conv_w, state=conv_state)
+    xc = F.silu(xc)
     q = (xc @ p.wq).reshape(b, s, nh, dh)
     k = (xc @ p.wk).reshape(b, s, nh, dh) * (dh**-0.5)
     v = (x_in @ p.wv).reshape(b, s, nh, dh)
@@ -59,26 +69,59 @@ def _mlstm_qkv_gates(p: Mlstm, cfg, x):
     i_raw, f_raw = torch.chunk(gates, 2, dim=-1)  # (B, S, NH)
     log_f = F.logsigmoid(f_raw)  # <= 0, exact
     i_gate = torch.exp(torch.clamp(i_raw, -15.0, 5.0))  # clipped exponential gate
-    return q, k, v, z, log_f, i_gate
+    return q, k, v, z, log_f, i_gate, new_conv
 
 
-def mlstm_apply(p: Mlstm, cfg, x: torch.Tensor) -> torch.Tensor:
-    """Train-mode mLSTM mixer of x (B, S, D): one chunk of min(2048, S)."""
+def mlstm_apply(p: Mlstm, cfg, x: torch.Tensor, *, mode: str = "train",
+                cache: Optional[dict] = None):
+    """mLSTM mixer of x (B, S, D): (out, new_cache).  Train and prefill run
+    one chunk of min(2048, S) from a zero state; ``"prefill_resume"`` from
+    ``cache["state"]`` (no new cache, as in the reference); decode (S = 1)
+    steps from ``cache`` (its conv state the pad).  Prefill and decode
+    return the new {"conv", "state"}, written into ``cache`` in place when
+    given."""
     b, s, d = x.shape
     d_in = 2 * d
     dh = d_in // cfg.n_heads
-    q, k, v, z, log_f, i_gate = _mlstm_qkv_gates(p, cfg, x)
+    conv_state = cache["conv"] if (cache is not None and mode == "decode") else None
+    q, k, v, z, log_f, i_gate, new_conv = _mlstm_qkv_gates(p, cfg, x, conv_state)
 
     # Fold the input gate into k; a ones column on v carries the normalizer.
     k = k * i_gate[..., None].to(k.dtype)
     v_aug = torch.cat([v, torch.ones_like(v[..., :1])], dim=-1)
-    y_aug, _ = chunked_linear_attention(q, k, v_aug, log_f, chunk=min(2048, s))
+    if mode == "decode":
+        if cache is None or s != 1:
+            raise ValueError(f"mlstm decode takes one token and a cache, got S {s}")
+        y_aug, new_state = linear_attention_step(q[:, 0], k[:, 0], v_aug[:, 0], log_f[:, 0],
+                                                 cache["state"])
+        y_aug = y_aug[:, None]
+    else:
+        state0 = cache["state"] if (cache is not None and mode == "prefill_resume") else None
+        y_aug, new_state = chunked_linear_attention(q, k, v_aug, log_f, chunk=min(2048, s),
+                                                    state0=state0)
 
     num, den = y_aug[..., :dh], y_aug[..., dh:]
     y = num / torch.clamp(torch.abs(den), min=1.0)
     y = y.reshape(b, s, d_in)
     y = rmsnorm(p.norm.scale, y, eps=cfg.norm_eps) * F.silu(z)
-    return y @ p.out_proj
+    out = y @ p.out_proj
+    new_cache = None
+    if mode in ("decode", "prefill"):
+        new_cache = write_cache(cache, {"conv": new_conv, "state": new_state})
+    return out, new_cache
+
+
+def mlstm_cache_init(cfg, batch: int, dtype, device=None) -> dict:
+    """conv (B, 3, d_in) of ``dtype``, state (B, NH, dh, dh + 1) float32,
+    zeros, on ``device`` (``None``: the card)."""
+    device = resolve_device(device)
+    d_in = 2 * cfg.d_model
+    nh = cfg.n_heads
+    dh = d_in // nh
+    return {
+        "conv": torch.zeros((batch, 3, d_in), dtype=dtype, device=device),
+        "state": torch.zeros((batch, nh, dh, dh + 1), dtype=torch.float32, device=device),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -106,16 +149,23 @@ class Slstm(torch.nn.Module):
         self.ffn_out = param(gen, (f_ff, d), dt, scale=f_ff**-0.5)
 
 
-def slstm_apply(p: Slstm, cfg, x: torch.Tensor) -> torch.Tensor:
-    """Train-mode sLSTM of x (B, S, D): the hidden-to-hidden recurrence is
-    serial, a Python loop over S in float32."""
+def slstm_apply(p: Slstm, cfg, x: torch.Tensor, *, mode: str = "train",
+                cache: Optional[dict] = None):
+    """sLSTM of x (B, S, D): (out, new_cache).  The hidden-to-hidden
+    recurrence is serial, a Python loop over S in float32, from the cached
+    {c, n, h, m} in decode and from zeros (n at 1e-6) otherwise.  Prefill
+    and decode return the final state, written into ``cache`` in place when
+    given."""
     b, s, d = x.shape
     nh = cfg.n_heads
     dh = d // nh
     wx = (x @ p.w_in).to(torch.float32)  # (B, S, 4D)
     r = p.r.to(torch.float32)
-    c = h = m = torch.zeros((b, d), dtype=torch.float32, device=x.device)
-    n = c + 1e-6
+    if cache is not None and mode == "decode":
+        c, n, h, m = cache["c"], cache["n"], cache["h"], cache["m"]
+    else:
+        c = h = m = torch.zeros((b, d), dtype=torch.float32, device=x.device)
+        n = c + 1e-6
     hs = []
     for t in range(s):
         rec = torch.einsum("bhd,hde->bhe", h.reshape(b, nh, dh), r).reshape(b, 4 * d)
@@ -133,4 +183,16 @@ def slstm_apply(p: Slstm, cfg, x: torch.Tensor) -> torch.Tensor:
         hs.append(h)
     y = torch.stack(hs, dim=1).to(x.dtype)  # (B, S, D)
     y = rmsnorm(p.norm.scale, y, eps=cfg.norm_eps)
-    return y + activation("gelu")(y @ p.ffn_in) @ p.ffn_out
+    y = y + activation("gelu")(y @ p.ffn_in) @ p.ffn_out
+    new_cache = None
+    if mode in ("decode", "prefill"):
+        new_cache = write_cache(cache, {"c": c, "n": n, "h": h, "m": m})
+    return y, new_cache
+
+
+def slstm_cache_init(cfg, batch: int, dtype, device=None) -> dict:
+    """c, h, m zeros and n 1e-6, each (B, d) float32, on ``device``
+    (``None``: the card); ``dtype`` is unused, as in the reference."""
+    device = resolve_device(device)
+    zeros = torch.zeros((batch, cfg.d_model), dtype=torch.float32, device=device)
+    return {"c": zeros, "n": zeros + 1e-6, "h": zeros.clone(), "m": zeros.clone()}

@@ -5,6 +5,8 @@
   * :func:`brute_force_select` -- the paper's brute-force baseline solver.
   * :func:`solve_ising` -- exact Ising minimum by 2^N enumeration, the
     ``"brute"`` entry of the solver registry.
+  * :func:`exact_qubo_min` -- exact unconstrained QUBO minimum by 2^N
+    enumeration.
 """
 
 from __future__ import annotations
@@ -94,3 +96,23 @@ def solve_ising(ising, key=None, *, reads: int = 8, steps: int = 400,
         spins=torch.from_numpy(best_s[None, :]),
         energies=torch.tensor([best_e], dtype=torch.float32),
     )
+
+
+def exact_qubo_min(q: np.ndarray, chunk: int = 1 << 18) -> Tuple[np.ndarray, float]:
+    """Exact unconstrained QUBO minimum by 2^N enumeration (N <= 22), chunked:
+    (x int32, energy)."""
+    if isinstance(q, torch.Tensor):
+        q = q.detach().cpu().numpy()
+    q = np.asarray(q, np.float32)
+    n = q.shape[0]
+    if n > 22:
+        raise ValueError(f"2^{n} too large")
+    best_e, best_x = np.inf, None
+    for start in range(0, 2**n, chunk):
+        idx = np.arange(start, min(start + chunk, 2**n), dtype=np.int64)
+        bits = ((idx[:, None] >> np.arange(n)[None, :]) & 1).astype(np.float32)
+        e = np.einsum("ri,ri->r", bits @ q, bits)
+        i = int(np.argmin(e))
+        if e[i] < best_e:
+            best_e, best_x = float(e[i]), bits[i].astype(np.int32)
+    return best_x, best_e

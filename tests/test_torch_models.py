@@ -31,7 +31,7 @@ from repro_torch.data.tokenizer import ByteTokenizer
 from repro_torch.interop import carry_across
 from repro_torch.models import attention as tattn
 from repro_torch.models import common as tcommon
-from repro_torch.models import embed_sentences, forward, init_params
+from repro_torch.models import decode_step, embed_sentences, forward, init_cache, init_params
 from repro_torch.models import mlp as tmlp
 
 DENSE = ["sbert-paper", "tinyllama-1.1b", "qwen2.5-32b", "minitron-8b", "gemma-2b"]
@@ -162,8 +162,9 @@ def test_self_attention(impl, name):
     pos = np.broadcast_to(np.arange(s)[None], (b, s))
     want, _ = jattn.self_attention(_layer0(jparams)["attn"], jcfg, jnp.asarray(x),
                                    jnp.asarray(pos), mode="train")
-    got = tattn.self_attention(model.layers[0].attn, tcfg, torch.from_numpy(x),
-                               torch.from_numpy(pos.copy()))
+    got, cache = tattn.self_attention(model.layers[0].attn, tcfg, torch.from_numpy(x),
+                                      torch.from_numpy(pos.copy()))
+    assert cache is None
     _close(got, want, LAYER_TOL)
 
 
@@ -221,17 +222,30 @@ def test_forward_logits_mask_the_padded_vocab():
 
 @pytest.mark.parametrize("name", sorted(REGISTRY))
 def test_other_families_name_their_roadmap_item(name):
-    """Every registered config runs in train mode; prefill and decode still
-    raise, naming their ROADMAP item."""
+    """Every registered config runs prefill and decode (ROADMAP queue 1 is
+    ported): the cache comes back, the logits are finite, and nothing names
+    a ROADMAP item."""
     cfg = get_config(name).reduced()
     model = init_params(cfg, 0, device="cpu")
-    for mode in ("prefill", "decode"):
-        with pytest.raises(NotImplementedError, match="queue 1: prefill and decode caches"):
-            forward(cfg, model, torch.zeros((1, 8), dtype=torch.int32), mode=mode)
+    frontend = (torch.ones((1, cfg.n_frontend_tokens, cfg.d_model))
+                if cfg.n_frontend_tokens else None)
+    cache = init_cache(cfg, 1, 9, device="cpu")
+    logits, got, _ = forward(cfg, model, torch.zeros((1, 8), dtype=torch.int32), mode="prefill",
+                             cache=cache, frontend=frontend)
+    assert got is cache and logits.shape == (1, 8, cfg.padded_vocab)
+    logits, got = decode_step(cfg, model, torch.ones((1, 1), dtype=torch.int32),
+                              torch.full((1, 1), 8), cache)
+    assert got is cache and bool(torch.isfinite(logits[:, :cfg.vocab_size]).all())
 
 
 def test_other_modes_name_their_roadmap_item():
+    """A prefill or decode without a cache, and an unknown mode, raise a
+    ValueError that names what is missing, not a ROADMAP item."""
     cfg = get_config("sbert-paper").reduced()
     model = init_params(cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1: prefill and decode caches"):
-        forward(cfg, model, torch.zeros((1, 8), dtype=torch.int32), mode="decode")
+    tokens = torch.zeros((1, 8), dtype=torch.int32)
+    for mode in ("prefill", "decode"):
+        with pytest.raises(ValueError, match="needs a cache from init_cache"):
+            forward(cfg, model, tokens, mode=mode)
+    with pytest.raises(ValueError, match="unknown mode 'prefill_resume'"):
+        forward(cfg, model, tokens, mode="prefill_resume")

@@ -69,8 +69,11 @@ def _pair(name, seed=1):
 @pytest.mark.parametrize("k", [1, 4])
 def test_causal_conv1d(k):
     x, w = _rand(0, 2, 19, 12), _rand(1, k, 12)
-    want, _ = jcommon.causal_conv1d(jnp.asarray(x), jnp.asarray(w))
-    _close(tcommon.causal_conv1d(torch.from_numpy(x), torch.from_numpy(w)), want, 1e-6)
+    want, want_state = jcommon.causal_conv1d(jnp.asarray(x), jnp.asarray(w))
+    got, got_state = tcommon.causal_conv1d(torch.from_numpy(x), torch.from_numpy(w))
+    _close(got, want, 1e-6)
+    assert tuple(got_state.shape) == want_state.shape
+    _close(got_state, want_state, 0)
 
 
 @pytest.mark.parametrize("seq,dim,tol", [(16, 32, 1e-6), (1500, 1024, 2e-4)])
@@ -107,7 +110,8 @@ def test_mamba2_apply():
     x = _rand(7, 2, 40, 64)
     jp = jax.tree.map(lambda a: a[0, 1], jparams["layers"]["mamba"]["mixer"])
     want, _ = jssd.mamba2_apply(jp, jcfg, jnp.asarray(x))
-    got = tssd.mamba2_apply(model.layers[0].mamba[1].mixer, tcfg, torch.from_numpy(x))
+    got, cache = tssd.mamba2_apply(model.layers[0].mamba[1].mixer, tcfg, torch.from_numpy(x))
+    assert cache is None
     _close(got, want, LAYER_TOL)
 
 
@@ -117,7 +121,8 @@ def test_mlstm_apply(s):
     x = _rand(8, 2, s, 64)
     jp = jax.tree.map(lambda a: a[1, 2], jparams["layers"]["mlstm"]["mixer"])
     want, _ = jxlstm.mlstm_apply(jp, jcfg, jnp.asarray(x))
-    got = txlstm.mlstm_apply(model.layers[1].mlstm[2].mixer, tcfg, torch.from_numpy(x))
+    got, cache = txlstm.mlstm_apply(model.layers[1].mlstm[2].mixer, tcfg, torch.from_numpy(x))
+    assert cache is None
     _close(got, want, LAYER_TOL)
 
 
@@ -126,5 +131,6 @@ def test_slstm_apply():
     x = _rand(9, 2, 33, 64)
     jp = jax.tree.map(lambda a: a[1], jparams["layers"]["slstm"]["cell"])
     want, _ = jxlstm.slstm_apply(jp, jcfg, jnp.asarray(x))
-    got = txlstm.slstm_apply(model.layers[1].slstm.cell, tcfg, torch.from_numpy(x))
+    got, cache = txlstm.slstm_apply(model.layers[1].slstm.cell, tcfg, torch.from_numpy(x))
+    assert cache is None
     _close(got, want, LAYER_TOL)
