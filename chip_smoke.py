@@ -142,6 +142,22 @@ Phases, each of which must pass or the script exits non-zero:
      against the CPU (logits and every cache leaf within 2e-4, pos bit for
      bit, router choices equal; xlstm also over 4 + 4 at its registered
      init);
+  4i. training (``train_phase``): tinyllama-1.1b at full width and depth
+     (bf16, remat, microbatch 2, float32 AdamW state) through ``train()``
+     and ``make_train_step`` on B 8 x 2,048 byte tokens for 6 steps, saved
+     once to a temporary directory and restored bit for bit: ms a step,
+     tokens/s, peak memory, checkpoint bytes and seconds, one step's
+     launches, host syncs, idle share and split (chunked attention forward
+     and backward, optimizer, GEMMs, the rest) beside the bound; 8 steps on
+     one batch, the loss falling; no kernel of the port launches (flash is
+     not on the train path, and raises under grad); every registered config
+     at full width in float32, one group, B 2 x 128, loss and every gradient
+     card against CPU within 2e-4 (xlstm as in 4g), tinyllama's train step
+     on both; ``python -m repro_torch.launch.train --reduced`` in a
+     subprocess and a crash at step 4 resumed against straight runs; the
+     Ising fleet step (``make_ising_solve_step``: the batched trajectory and
+     energy kernels, one launch each) at D 256 x R 32 x N 64 x 1,000 steps,
+     energies exact, against its plain versions;
   5. time every kernel, its plain version and its bound (at the padded
      shapes the reference's kernels take, and at the instances' own n spins
      and reads; a COBI anneal row's bound_ms is the latter, since its loop
@@ -220,6 +236,15 @@ MCMC_DIRECT_SELECTION = [1, 4, 8, 9, 10, 12]
 DECODE_BATCH, DECODE_PROMPT, DECODE_STEPS = 8, 2048, 256
 RING_PROMPT, RING_STEPS = 5120, 64
 PARITY_PROMPT, PARITY_STEPS = 256, 8
+# Phase 4i (train): tinyllama's steps of B 8 x 2,048 tokens through train()
+# and the fixed-batch run; the card-against-CPU gradients at B 2 x 128; the
+# Ising fleet step at one card's shard of the reference's ising-fleet cell
+# (D 4096 x R 512 x N 64 x 1,000 steps over a 16 x 16 mesh:
+# src/repro/launch/dryrun.py), and its check against the plain versions.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, FIXED_STEPS = 8, 2048, 6, 8
+GRAD_BATCH, GRAD_SEQ = 2, 128
+FLEET_DOCS, FLEET_READS, FLEET_SPINS, FLEET_STEPS = 256, 32, 64, 1000
+FLEET_CHECK_DOCS, FLEET_CHECK_STEPS = 4, 50
 
 
 def fail(msg: str) -> None:
@@ -948,29 +973,31 @@ def families_phase(dev, reset_counts, counts, expect, launches, enc_docs, key) -
     print(f"families phase wall: {time.perf_counter() - t_phase:.1f} s")
 
 
-def decode_split(prof, wall: float, n_steps: int) -> dict:
-    """A profiled run of ``n_steps`` decode steps (or prefills): device
-    launches, host syncs (the runtime's stream and event synchronisations
-    and blocking copies) and busy time a step, the idle share, and the busy
-    time split by where each kernel started: inside a ``decode.attention``
-    span (the softmax attention: the GQA repeat, products, mask, softmax),
-    else GEMMs by kernel name, else the rest (norms, RoPE, the cache write,
-    activations, residuals, casts, the logits' mask)."""
+def decode_split(prof, wall: float, n_steps: int, prefix: str = "decode.",
+                 regions=("attention",)) -> dict:
+    """A profiled run of ``n_steps`` decode steps (or prefills, or train
+    steps): device launches, host syncs (the runtime's stream and event
+    synchronisations and blocking copies) and busy time a step, the idle
+    share, and the busy time split by where each kernel started: inside a
+    span named ``prefix`` + one of ``regions`` (decode: ``attention``, the
+    softmax attention: the GQA repeat, products, mask, softmax; train also
+    ``optimizer``), else GEMMs by kernel name, else the rest (norms, RoPE,
+    the cache write, activations, residuals, casts, the logits' mask)."""
     import bisect
 
     import torch
 
     cuda = torch.autograd.DeviceType.CUDA
     events = [ev for ev in prof.events() if ev.device_type == cuda]
-    spans = sorted((ev.time_range.start, ev.time_range.end, ev.name[7:])
-                   for ev in events if ev.name.startswith("decode."))
+    spans = sorted((ev.time_range.start, ev.time_range.end, ev.name[len(prefix):])
+                   for ev in events if ev.name.startswith(prefix))
     starts = [sp[0] for sp in spans]
-    split = dict.fromkeys(("attention", "GEMMs", "other"), 0.0)
+    split = dict.fromkeys((*regions, "GEMMs", "other"), 0.0)
     syncs = sum(ev.name in ("cudaStreamSynchronize", "cudaEventSynchronize", "cudaMemcpy")
                 for ev in prof.events())
     kernels = 0
     for ev in events:
-        if ev.name.startswith("decode."):
+        if ev.name.startswith(prefix):
             continue
         kernels += 1
         ms = ev.time_range.elapsed_us() / 1e3
@@ -978,12 +1005,13 @@ def decode_split(prof, wall: float, n_steps: int) -> dict:
         region = spans[i][2] if i >= 0 and ev.time_range.start < spans[i][1] else None
         low = ev.name.lower()
         gemm = any(x in low for x in ("gemm", "gemv", "nvjet", "xmma", "cutlass"))
-        split["attention" if region == "attention" else "GEMMs" if gemm else "other"] += ms
+        split[region if region in regions else "GEMMs" if gemm else "other"] += ms
     busy = sum(split.values())
     return {"steps": n_steps, "wall_ms_a_step": wall * 1e3 / n_steps,
             "busy_ms_a_step": busy / n_steps, "launches_a_step": kernels / n_steps,
             "host_syncs_a_step": syncs / n_steps,
             "idle_share": 1 - busy / (wall * 1e3) if busy > 0 else None,
+            "spans": {r: sum(sp[2] == r for sp in spans) for r in regions},
             "split_ms_a_step": ({k: v / n_steps for k, v in split.items()} if spans
                                 else "not measured (no region spans on the device)")}
 
@@ -1380,6 +1408,584 @@ def decode_phase(dev, reset_counts, counts, expect) -> None:
         del card, host
         release()
     print(f"decode phase wall: {time.perf_counter() - t_phase:.1f} s")
+
+
+def train_phase(dev, reset_counts, counts, expect, launches) -> None:
+    """Phase 4i: the training scaffold on the card.
+
+    (a) tinyllama-1.1b at full width and depth (22 layers, bf16,
+    ``init_params(seed 0)``, remat, ``cfg.microbatch`` 2) with float32
+    AdamW state: ``train()`` over ``make_train_step`` for TRAIN_STEPS steps
+    of ``SyntheticTextTask(DataConfig(8, 2048))`` batches (16,384 tokens a
+    step), saving once at the end (keep 1) to a temporary directory that
+    the phase deletes: every step's loss and grad norm finite, ms a step
+    (CUDA events; median of the warm steps), tokens/s, peak memory, the
+    checkpoint's bytes and save and restore seconds, and the restored
+    weights and state equal to the live ones bit for bit; one more step
+    under torch.profiler (launches, host syncs, idle share, and the device
+    time split into the chunked attention, forward, recomputed forward and
+    backward, the optimizer, GEMMs and the rest); the bound (the model's
+    GEMM and causal-attention FLOP over the bf16 peak, plus the optimizer's
+    bytes over HBM's rate) and the step's share of it; then FIXED_STEPS
+    steps on one batch at ``OptConfig(warmup_steps=1)``, the last loss
+    below the first.  No counted kernel launches (flash is not on the
+    train path).  (b) Every registered config at full width in float32,
+    cut to one group (whisper's encoder to 1 layer), B 2 x S 128, stub
+    frontends: ``train_loss`` and every gradient tensor on the card against
+    the CPU within 2e-4, the routers' choices equal; xlstm over the first
+    SLSTM_STEPS positions at its registered init and over all 128 with r at
+    fan-in dh; tinyllama's ``make_train_step`` once on both (weights and
+    state within 2e-4, ``lr`` equal); a flash config's train step raises.
+    (c) ``python -m repro_torch.launch.train --arch tinyllama-1.1b
+    --reduced --steps 6 --ckpt-every 3`` in a subprocess (exit 0, its
+    checkpoints left); then, in process, a run that crashes at step 4 and
+    resumes against straight runs: bit for bit, or, if two straight runs
+    differ (the embedding's scatter-add backward), within twice their
+    spread.  (d) ``make_ising_solve_step`` on one card's shard of the
+    reference's ising-fleet cell: D 256 chip-integer instances
+    (``synthetic_document`` -> formulation -> rounding, N 64, scaled by a
+    power of two so every energy stays exact), R 32 reads, 1,000 steps:
+    every returned energy its spins' exact energy bit for bit, the
+    launches of a call, ms cold and warm, the bound; at 50 steps on 4 of
+    them against the step's plain versions (spins and energies equal
+    wherever no phase lies within 2e-4 of the readout boundary), and at
+    1,000 steps the mean best energy against a batched plain twin's
+    (within 1%: full anneals are judged on energy quality).
+    """
+    import copy
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch import prng
+    from repro_torch.configs import REGISTRY
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import improved_ising
+    from repro_torch.core.rounding import quantize_ising
+    from repro_torch.data.pipeline import DataConfig, SyntheticTextTask
+    from repro_torch.data.synthetic import synthetic_document
+    from repro_torch.embeddings import problem_from_sentences
+    from repro_torch.kernels import ref as kref
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.models import attention as attn
+    from repro_torch.models import init_params, param_tree, train_loss
+    from repro_torch.models import mlp as mlp_mod
+    from repro_torch.models.common import leaf_parts, tree_items
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.loop import LoopConfig, PreemptionError, train
+
+    t_phase = time.perf_counter()
+
+    def gb(n: float) -> str:
+        return f"{n / 1e9:.3f} GB"
+
+    def release() -> None:
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def parts(tree) -> list:
+        return [(("/".join(path), i), t) for path, leaf in tree_items(tree)
+                for i, t in enumerate(leaf_parts(leaf))]
+
+    def differing(a, b) -> list:
+        """The parts where two trees differ in type or bits."""
+        pa, pb = parts(a), parts(b)
+        if [k for k, _ in pa] != [k for k, _ in pb]:
+            fail("train: two trees of different structure")
+        return [k for (k, x), (_, y) in zip(pa, pb) if x.dtype != y.dtype or not torch.equal(x, y)]
+
+    # ---------------------------------------------------------------- (a)
+    cfg = get_config("tinyllama-1.1b")
+    if cfg.microbatch != 2 or not cfg.remat:
+        fail(f"train: tinyllama-1.1b has microbatch {cfg.microbatch}, remat {cfg.remat}")
+    torch.cuda.reset_peak_memory_stats()
+    model = init_params(cfg, 0)
+    state = opt.init(model)
+    n_params = sum(p.numel() for p in model.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    s_bytes = sum(t.numel() * t.element_size() for name in ("master", "mu", "nu")
+                  for _, t in parts(state[name]))
+    data = SyntheticTextTask(DataConfig(batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ),
+                             cfg.vocab_size)
+    tokens_a_step = TRAIN_BATCH * TRAIN_SEQ
+    step = tsteps.make_train_step(cfg, opt.OptConfig(total_steps=TRAIN_STEPS))
+    timed, metrics = [], []
+
+    def timed_step(m, st, batch):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = step(m, st, batch)
+        ev[1].record()
+        timed.append(ev)
+        metrics.append(out[2])
+        return out
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    saves = []
+    orig_save = ckpt.save
+
+    def timed_save(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = orig_save(*a, **kw)
+        saves.append((time.perf_counter() - t0, sum(f.stat().st_size for f in path.iterdir())))
+        return path
+
+    print(f"train tinyllama-1.1b: {n_params / 1e9:.4f} B parameters, weights {gb(w_bytes)} "
+          f"(bf16), AdamW state {gb(s_bytes)} (float32), microbatch {cfg.microbatch}, remat "
+          f"{cfg.remat}, attn_impl {cfg.attn_impl} (chunk {cfg.attn_chunk}); B {TRAIN_BATCH} x "
+          f"S {TRAIN_SEQ} ({tokens_a_step} tokens a step); checkpoint dir free "
+          f"{gb(shutil.disk_usage(tmp).free)}")
+    ckpt.save = timed_save
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        model, state, history = train(
+            cfg, timed_step, model, state, data,
+            LoopConfig(total_steps=TRAIN_STEPS, ckpt_every=TRAIN_STEPS, ckpt_dir=str(tmp),
+                       keep=1, log_every=1),
+            log=lambda line: print(f"train tinyllama-1.1b {line}"))
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        c = counts()
+        if c != expect():
+            fail(f"train tinyllama-1.1b: kernels of the port launched {c}; the train path has none")
+        peak = torch.cuda.max_memory_allocated()
+        losses = [h["loss"] for h in history]
+        norms = [float(m["grad_norm"]) for m in metrics]
+        if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses + norms):
+            fail(f"train tinyllama-1.1b: losses {losses}, grad norms {norms}")
+        ms = [a.elapsed_time(e) for a, e in timed]
+        if len(saves) != 1 or ckpt.steps_available(tmp) != [TRAIN_STEPS]:
+            fail(f"train tinyllama-1.1b: {len(saves)} saves, checkpoints "
+                 f"{ckpt.steps_available(tmp)}; want one, at step {TRAIN_STEPS}")
+        t_save, ck_bytes = saves[0]
+        release()
+        t0 = time.perf_counter()
+        back = ckpt.restore(tmp, TRAIN_STEPS, {"params": model, "opt": state}, cfg=cfg)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        bad = differing(back["params"], param_tree(model)) + differing(back["opt"], state)
+        if bad:
+            fail(f"train tinyllama-1.1b: restored leaves differ from the live ones: {bad[:5]}")
+        del back
+        release()
+    finally:
+        ckpt.save = orig_save
+        shutil.rmtree(tmp, ignore_errors=True)
+    med = percentile(ms[1:], 0.5)
+    print(f"train tinyllama-1.1b: {TRAIN_STEPS} steps through train() in {t_train:.2f} s; "
+          f"ms a step (CUDA events) " + " ".join(f"{x:.1f}" for x in ms) + f"; warm median "
+          f"{med:.2f} ms ({tokens_a_step / med * 1e3:.1f} tokens/s); losses "
+          + " ".join(f"{x:.4f}" for x in losses) + "; grad norms "
+          + " ".join(f"{x:.4f}" for x in norms) + f"; peak memory {gb(peak)}")
+    print(f"train tinyllama-1.1b checkpoint: {gb(ck_bytes)}, save {t_save:.2f} s "
+          f"({ck_bytes / t_save / 1e9:.2f} GB/s), restore to the card {t_restore:.2f} s "
+          f"({ck_bytes / t_restore / 1e9:.2f} GB/s); restored == live, every leaf bit for bit")
+
+    # One more step under the profiler: the chunked attention in spans
+    # forward (and in its recomputation under remat) and, through identity
+    # autograd nodes around it, backward (the engine runs an attention's
+    # backward nodes between its output's node and its inputs'); the
+    # optimizer's update in a span.
+    originals = {"_sdpa_chunked": attn._sdpa_chunked, "_sdpa": attn._sdpa}
+    orig_apply = opt.apply_updates
+    open_spans = []
+
+    class Open(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, out):
+            return out.view_as(out)
+
+        @staticmethod
+        def backward(ctx, g):
+            rf = record_function("train.attention")
+            rf.__enter__()
+            open_spans.append(rf)
+            return g
+
+    class Close(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v):
+            return q.view_as(q), k.view_as(k), v.view_as(v)
+
+        @staticmethod
+        def backward(ctx, gq, gk, gv):
+            if open_spans:
+                open_spans.pop().__exit__(None, None, None)
+            return gq, gk, gv
+
+    def span(f):
+        def wrapped(q, k, v, *a, **kw):
+            q, k, v = Close.apply(q, k, v)
+            with record_function("train.attention"):
+                out = f(q, k, v, *a, **kw)
+            return Open.apply(out)
+        return wrapped
+
+    def apply_in_span(*a, **kw):
+        with record_function("train.optimizer"):
+            return orig_apply(*a, **kw)
+
+    batch = data.batch(TRAIN_STEPS)
+    try:
+        for name, f in originals.items():
+            setattr(attn, name, span(f))
+        opt.apply_updates = apply_in_span
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model, state, m = step(model, state, batch)
+            loss = float(m["loss"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        for name, f in originals.items():
+            setattr(attn, name, f)
+        opt.apply_updates = orig_apply
+    t0 = time.perf_counter()
+    split = decode_split(prof, wall, 1, prefix="train.", regions=("attention", "optimizer"))
+    del prof
+    print(f"train tinyllama-1.1b step profile (read in {time.perf_counter() - t0:.1f} s; "
+          f"step {TRAIN_STEPS + 1}, loss {loss:.4f}; "
+          f"attention spans: {cfg.n_layers} layers x {cfg.microbatch} microbatches x forward, "
+          f"recomputed forward, backward): {json.dumps(split)}")
+
+    # Work of a step: 6 x the GEMMs' weights (the layers and the
+    # unembedding; the embedding is a gather) a token, forward and
+    # backward, and causal attention (QK^T and PV over the pairs it needs)
+    # forward and backward; remat's recomputed forward is not model work.
+    # The optimizer reads a weight, its gradient, master, mu and nu and
+    # writes all but the gradient: 30 bytes a parameter (bf16 weights,
+    # float32 gradient and state).
+    hd, n_l = cfg.hd, cfg.n_layers
+    layer_w = cfg.d_model * (2 * cfg.n_heads * hd + 2 * cfg.n_kv_heads * hd) \
+        + 3 * cfg.d_model * cfg.d_ff
+    gemm_w = n_l * layer_w + cfg.d_model * cfg.padded_vocab
+    gemm_flop = 6 * gemm_w * tokens_a_step
+    attn_flop = 3 * 4 * TRAIN_BATCH * n_l * cfg.n_heads * hd * (TRAIN_SEQ * (TRAIN_SEQ + 1) // 2)
+    opt_bytes = n_params * (2 + 4 + 3 * 4 + 2 + 3 * 4)
+    model_ms = (gemm_flop + attn_flop) / PEAK_BF16_FLOPS * 1e3
+    opt_ms = opt_bytes / PEAK_BYTES_PER_S * 1e3
+    bound = model_ms + opt_ms
+    print(f"train tinyllama-1.1b bound: GEMMs {gemm_flop / 1e12:.2f} TFLOP ({gemm_w / 1e9:.4f} G "
+          f"weights x 6 x {tokens_a_step} tokens), causal attention {attn_flop / 1e12:.2f} TFLOP "
+          f"(forward and backward), {model_ms:.2f} ms at {PEAK_BF16_FLOPS / 1e12:.1f} TFLOP/s "
+          f"(operations); optimizer {gb(opt_bytes)}, {opt_ms:.2f} ms (bytes); bound "
+          f"{bound:.2f} ms a step; the warm median is {med / bound:.2f}x it (share "
+          f"{bound / med:.4f})")
+
+    # A fixed batch: the loss must fall.
+    del state
+    release()
+    fixed_state = opt.init(model)
+    fixed_step = tsteps.make_train_step(cfg, opt.OptConfig(warmup_steps=1,
+                                                           total_steps=FIXED_STEPS))
+    fixed = data.batch(0)
+    fixed_losses = []
+    t0 = time.perf_counter()
+    for _ in range(FIXED_STEPS):
+        model, fixed_state, m = fixed_step(model, fixed_state, fixed)
+        fixed_losses.append(float(m["loss"]))
+    print(f"train tinyllama-1.1b fixed batch, {FIXED_STEPS} steps at OptConfig(warmup_steps=1) "
+          f"in {time.perf_counter() - t0:.1f} s: losses "
+          + " ".join(f"{x:.4f}" for x in fixed_losses))
+    if not all(math.isfinite(x) for x in fixed_losses) or fixed_losses[-1] >= fixed_losses[0]:
+        fail(f"train tinyllama-1.1b: on one batch the loss went {fixed_losses[0]} -> "
+             f"{fixed_losses[-1]}")
+    print("train summary " + json.dumps({
+        "step_ms_median": med, "step_ms": ms, "tokens_s": tokens_a_step / med * 1e3,
+        "peak_memory_bytes": peak, "bound_ms": bound, "bound_share": bound / med,
+        "launches_a_step": split["launches_a_step"],
+        "host_syncs_a_step": split["host_syncs_a_step"], "idle_share": split["idle_share"],
+        "split_ms": split["split_ms_a_step"], "checkpoint_bytes": ck_bytes,
+        "save_s": t_save, "restore_s": t_restore, "losses": losses,
+        "fixed_batch_losses": fixed_losses}))
+    del model, fixed_state, metrics, timed
+    release()
+
+    walls_by_part = {"a": time.perf_counter() - t_phase}
+
+    # ---------------------------------------------------------------- (b)
+    t_part = time.perf_counter()
+    seen = []
+    orig_route = mlp_mod._route
+
+    def spy(p, c, x):
+        res = orig_route(p, c, x)
+        seen.append(res[1].cpu())
+        return res
+
+    def grads_on(cfg, m, d, batch):
+        """(loss + aux, loss, the gradient of every part, the routers'
+        choices) of train_loss on device d."""
+        seen.clear()
+        leaves = [t for _, t in parts(param_tree(m))]
+        with tsteps._trainable(leaves):
+            total, loss = train_loss(cfg, m, {k: v.to(d) for k, v in batch.items()})
+            grads = list(torch.autograd.grad(total, leaves))
+        return float(total.detach()), float(loss.detach()), grads, list(seen)
+
+    def grad_check(cfg, card, host, batch, label):
+        mlp_mod._route = spy
+        try:
+            t0 = time.perf_counter()
+            got = grads_on(cfg, card, dev, batch)
+            w_card = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            want = grads_on(cfg, host, torch.device("cpu"), batch)
+            w_cpu = time.perf_counter() - t0
+        finally:
+            mlp_mod._route = orig_route
+        # Compared on the card: an expert stack's gradients are GBs, and
+        # elementwise passes over them on the host take longer than the
+        # gradients themselves.
+        names = [k for k, _ in parts(param_tree(host))]
+        errs, bad = [], []
+        for key, a, b in zip(names, got[2], want[2]):
+            b = b.to(dev)
+            errs.append(float((a - b).abs().max()) if a.numel() else 0.0)
+            if not torch.allclose(a, b, rtol=2e-4, atol=2e-4):
+                bad.append(key)
+        got[2].clear()
+        want[2].clear()
+        same_idx = len(got[3]) == len(want[3]) and all(
+            torch.equal(a, b) for a, b in zip(got[3], want[3]))
+        print(f"train card vs CPU {label}: loss {got[1]:.6f} vs {want[1]:.6f} (+ aux "
+              f"{got[0] - got[1]:.3e}); {len(names)} gradient tensors, max abs err "
+              f"{max(errs):.3e}" + (f", router choices equal: {same_idx}" if cfg.moe else "")
+              + f"; card {w_card:.2f} s, CPU {w_cpu:.2f} s")
+        for x, y in ((got[0], want[0]), (got[1], want[1])):
+            if not math.isclose(x, y, rel_tol=2e-4, abs_tol=2e-4):
+                fail(f"train card vs CPU {label}: loss {x} vs {y}")
+        if bad:
+            fail(f"train card vs CPU {label}: gradients differ beyond 2e-4: {bad[:5]}")
+        if cfg.moe and not same_idx:
+            fail(f"train card vs CPU {label}: the routers' choices differ")
+
+    rng = np.random.default_rng(1)
+    for name in sorted(REGISTRY):
+        base = get_config(name)
+        cut = {"n_layers": base.group_size}
+        if base.encoder_layers:
+            cut["encoder_layers"] = 1
+        cfg = base.replace(param_dtype="float32", **cut)
+        t0 = time.perf_counter()
+        card = init_params(cfg, 0)
+        host = copy.deepcopy(card).to("cpu")
+        print(f"train card vs CPU {name}: init_params on the card and a copy on the CPU "
+              f"{time.perf_counter() - t0:.1f} s")
+        ids = rng.integers(0, cfg.vocab_size, (GRAD_BATCH, GRAD_SEQ + 1)).astype(np.int64)
+        batch = {"tokens": torch.tensor(ids[:, :-1]), "targets": torch.tensor(ids[:, 1:])}
+        batch["targets"][-1, -5:] = -1
+        if cfg.n_frontend_tokens:
+            batch["frontend"] = torch.tensor(rng.standard_normal(
+                (GRAD_BATCH, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32))
+        label = (f"{name} (float32, {cfg.n_layers} layers"
+                 + (", 1 encoder layer" if base.encoder_layers else ""))
+        if cfg.family == "ssm":
+            first = {k: (v if k == "frontend" else v[:, :SLSTM_STEPS]) for k, v in batch.items()}
+            grad_check(cfg, card, host, first, label + f", S {SLSTM_STEPS}, B {GRAD_BATCH})")
+            dh = cfg.d_model // cfg.n_heads
+            with torch.no_grad():
+                for m in (card, host):
+                    for group in m.layers:
+                        group.slstm.cell.r.mul_((cfg.n_heads / dh) ** 0.5)
+            label += ", sLSTM r at fan-in dh"
+        grad_check(cfg, card, host, batch, label + f", S {GRAD_SEQ}, B {GRAD_BATCH})")
+        if name == "tinyllama-1.1b":
+            ocfg = opt.OptConfig(warmup_steps=1, peak_lr=1e-3)
+            outs = []
+            for m in (card, host):
+                st = opt.init(m)
+                _, st, met = tsteps.make_train_step(cfg, ocfg)(m, st, batch)
+                outs.append(([t.cpu() for _, t in parts(param_tree(m))],
+                             [t.cpu() for key in ("master", "mu", "nu")
+                              for _, t in parts(st[key])],
+                             float(met["lr"]), float(met["loss"])))
+            (w_a, s_a, lr_a, l_a), (w_b, s_b, lr_b, l_b) = outs
+            err_w = max(float((a - b).abs().max()) for a, b in zip(w_a, w_b))
+            err_s = max(float((a - b).abs().max()) for a, b in zip(s_a, s_b))
+            print(f"train card vs CPU {name} make_train_step: weights max abs err {err_w:.3e}, "
+                  f"state {err_s:.3e}, lr {lr_a} vs {lr_b}, loss {l_a:.6f} vs {l_b:.6f}")
+            if lr_a != lr_b or not all(torch.allclose(a, b, rtol=2e-4, atol=2e-4)
+                                       for a, b in zip(w_a + s_a, w_b + s_b)):
+                fail(f"train card vs CPU {name}: the train step's weights or state differ")
+            flash = tsteps.make_train_step(cfg.replace(attn_impl="flash"), ocfg)
+            try:
+                flash(card, opt.init(card), batch)
+            except RuntimeError as e:
+                if "no backward" not in str(e):
+                    raise
+                print(f"train {name} attn_impl='flash' under grad on the card raises: {e}")
+            else:
+                fail("train: a flash train step ran on the card; the kernel has no backward")
+        del card, host
+        release()
+
+    walls_by_part["b"] = time.perf_counter() - t_part
+
+    # ---------------------------------------------------------------- (c)
+    t_part = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_resume_") as tmp_dir:
+        tmp = Path(tmp_dir)
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "tinyllama-1.1b",
+               "--reduced", "--steps", "6", "--ckpt-every", "3", "--ckpt-dir", str(tmp / "cli"),
+               "--device", dev.type]
+        t0 = time.perf_counter()
+        run = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                             env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        print(f"train launcher: {' '.join(cmd[1:])}: exit {run.returncode} in "
+              f"{time.perf_counter() - t0:.1f} s; checkpoints "
+              f"{ckpt.steps_available(tmp / 'cli')}; last lines: "
+              + " | ".join(run.stdout.strip().splitlines()[-2:]))
+        if run.returncode != 0 or ckpt.steps_available(tmp / "cli") != [3, 6]:
+            fail(f"train launcher failed: {run.stderr[-2000:]}")
+
+        small = get_config("tinyllama-1.1b").reduced()
+
+        def mini(path, failure_at=None):
+            m = init_params(small, 0)
+            st = opt.init(m)
+            step_fn = tsteps.make_train_step(small, opt.OptConfig(total_steps=6, warmup_steps=2))
+            data_fn = SyntheticTextTask(DataConfig(batch_size=4, seq_len=256), small.vocab_size)
+            loop = LoopConfig(total_steps=6, ckpt_every=2, ckpt_dir=str(path), log_every=100,
+                              failure_at_step=failure_at)
+            return train(small, step_fn, m, st, data_fn, loop, log=lambda line: None)
+
+        def trees(run_):
+            return {"params": param_tree(run_[0]), "opt": run_[1]}
+
+        def diff(a, b) -> float:
+            return max(float((x.float() - y.float()).abs().max())
+                       for (_, x), (_, y) in zip(parts(trees(a)), parts(trees(b))))
+
+        straight = [mini(tmp / f"straight{i}") for i in range(3)]
+        try:
+            mini(tmp / "crash", failure_at=4)
+        except PreemptionError:
+            pass
+        else:
+            fail("train: failure_at_step=4 did not raise PreemptionError")
+        resumed = mini(tmp / "crash")
+        if [h["step"] for h in resumed[2]] != [5, 6]:
+            fail(f"train: the resumed run took steps {[h['step'] for h in resumed[2]]}")
+        spread = max(diff(a, b) for i, a in enumerate(straight) for b in straight[i + 1:])
+        gap = diff(resumed, straight[0])
+        bitwise = not differing(trees(resumed), trees(straight[0]))
+        print(f"train crash at step 4 and resume (tinyllama-1.1b reduced, B 4 x 256, 6 steps): "
+              f"three straight runs' spread {spread:.3e}, resumed vs straight {gap:.3e}: "
+              + ("bit for bit" if bitwise else "within twice the straight runs' spread"
+                 if 0 < gap <= 2 * spread else "differs"))
+        if not bitwise and (spread == 0 or gap > 2 * spread):
+            fail(f"train: the resumed run differs from the straight one by {gap} (straight runs' "
+                 f"spread {spread})")
+        del straight, resumed
+        release()
+
+    walls_by_part["c"] = time.perf_counter() - t_part
+
+    # ---------------------------------------------------------------- (d)
+    t_part = time.perf_counter()
+    d, r, n = FLEET_DOCS, FLEET_READS, FLEET_SPINS
+    t0 = time.perf_counter()
+    hs, js, scales = [], [], []
+    for i in range(d):
+        problem = problem_from_sentences(synthetic_document(2000 + i, n), m=6, lam=0.5,
+                                         device=dev)
+        inst = quantize_ising(improved_ising(problem), key=prng.key(i)).ising
+        denom = float(2 * inst.j.abs().sum(-1).max() + inst.h.abs().max())
+        scales.append(2.0 ** math.ceil(math.log2(denom)))
+        hs.append(inst.h)
+        js.append(inst.j)
+    h_int, j_int = torch.stack(hs), torch.stack(js)
+    scale = torch.tensor(scales, dtype=torch.float32, device=dev)
+    h_s, j_s = h_int / scale[:, None], j_int / scale[:, None, None]  # exact: powers of two
+    phi0 = prng.uniform(prng.key(99), (d, r, n), 0.0, 2.0 * math.pi, device=dev)
+    print(f"train ising fleet: {d} instances from synthetic documents (N {n}, integer h and J "
+          f"in [{int(min(h_int.min(), j_int.min()))}, {int(max(h_int.max(), j_int.max()))}], "
+          f"scaled by 2^-{int(math.log2(min(scales)))} to 2^-{int(math.log2(max(scales)))}) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    solve = tsteps.make_ising_solve_step(steps=FLEET_STEPS)
+    per_call = expect(cobi_trajectory_batched=1, ising_energy_batched=1)
+    walls = []
+    for i in range(3):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        spins, energies = solve(h_s, j_s, phi0)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        c = counts()
+        if c != per_call:
+            fail(f"train ising fleet: a call launched {c}; want one batched trajectory and one "
+                 "batched energy")
+        if i == 0:
+            for name in ("cobi_trajectory_batched", "ising_energy_batched"):
+                launches[name] += c[name]
+    warm_ms = cuda_ms(lambda: solve(h_s, j_s, phi0), reps=5, warmup=1)
+    reset_counts()
+    s64 = spins.double()
+    exact = (torch.einsum("dn,dn->d", s64, h_int.double())
+             + torch.einsum("di,dij,dj->d", s64, j_int.double(), s64)) / scale.double()
+    if spins.dtype != torch.int8 or tuple(spins.shape) != (d, n) or not torch.equal(
+            energies, exact.float()):
+        fail(f"train ising fleet: energies differ from their spins' exact energies at "
+             f"{int((energies != exact.float()).sum())} of {d} documents")
+    flop = FLEET_STEPS * 2 * (2 * r) * n * n * d + 2 * r * n * n * d
+    nbytes = 4 * (j_s.numel() + h_s.numel() + phi0.numel()) + spins.numel() + 4 * d
+    b_ms, by = bound_ms(flop, nbytes)
+
+    def fleet_plain(h, j, phi, steps):
+        """A batched plain twin of the step: the oracle's Euler steps over
+        every document at once, sign, energies, first argmin."""
+        j2 = j + j
+        r_ = phi.shape[1]
+        ks_max32 = torch.tensor(1.2, dtype=torch.float32)
+        for t in range(steps):
+            sn, cs = torch.sin(phi), torch.cos(phi)
+            mj = torch.cat([cs, sn], dim=1) @ j2
+            grad = (sn * mj[:, :r_] - cs * mj[:, r_:]) + h[:, None] * sn
+            ks = float(ks_max32 * (float(t) + 1.0) / steps)
+            phi = phi + 0.35 * (grad - ks * (2.0 * (sn * cs)))
+        e = kref.ref_ising_energy_batched(kref.sign_spins(phi), h, j)
+        return e[torch.arange(phi.shape[0], device=phi.device), torch.argmin(e, dim=1)]
+
+    plain_ms = cuda_ms(lambda: fleet_plain(h_s, j_s, phi0, FLEET_STEPS), reps=1, warmup=0)
+    mean_k = float(energies.double().mean())
+    mean_p = float(fleet_plain(h_s, j_s, phi0, FLEET_STEPS).double().mean())
+    print(f"train ising fleet (D {d}, R {r}, N {n}, {FLEET_STEPS} steps): cold "
+          f"{walls[0]:.3f} ms, then {walls[1]:.3f} and {walls[2]:.3f} ms (host clock to a "
+          f"synchronise), warm {warm_ms:.4f} ms (CUDA events); launches a call "
+          f"{ {k: v for k, v in per_call.items() if v} }; energies exact at all {d}; bound "
+          f"{b_ms:.4f} ms ({by}, {flop / 1e12:.4f} TFLOP, {nbytes / 1e6:.2f} MB), warm "
+          f"{warm_ms / b_ms:.2f}x it; mean best energy {mean_k:.6f} against the batched plain "
+          f"twin's {mean_p:.6f} ({plain_ms:.1f} ms)")
+    if abs(mean_k - mean_p) > 0.01 * abs(mean_p):
+        fail(f"train ising fleet: mean best energy {mean_k} against the plain twin's {mean_p}")
+    # 50 steps on 4 documents: the card's step against its plain versions.
+    k = FLEET_CHECK_DOCS
+    short = tsteps.make_ising_solve_step(steps=FLEET_CHECK_STEPS)
+    cs_, ce_ = short(h_s[:k], j_s[:k], phi0[:k])
+    ps_, pe_ = short(h_s[:k].cpu(), j_s[:k].cpu(), phi0[:k].cpu())
+    reset_counts()
+    phi = torch.stack([kref.ref_cobi_trajectory(j_s[i].cpu(), h_s[i].cpu(), phi0[i].cpu(),
+                                                steps=FLEET_CHECK_STEPS, dt=0.35, ks_max=1.2)
+                       for i in range(k)])
+    clear = (torch.cos(phi).abs() > TRAJ_TOL * (1 + phi.abs())).all(dim=2).all(dim=1)
+    agree = (cs_.cpu() == ps_).all(dim=1) & (ce_.cpu() == pe_)
+    print(f"train ising fleet at {FLEET_CHECK_STEPS} steps on {k} documents: clear of the "
+          f"readout boundary {clear.tolist()}, card == plain {agree.tolist()}")
+    if not bool(agree[clear].all()):
+        fail("train ising fleet: the card's best spins or energies differ from the plain "
+             "versions' on a document clear of the readout boundary")
+    walls_by_part["d"] = time.perf_counter() - t_part
+    print(f"train phase wall: {time.perf_counter() - t_phase:.1f} s ("
+          + ", ".join(f"({k}) {v:.1f} s" for k, v in walls_by_part.items()) + ")")
 
 
 def main() -> None:
@@ -2551,6 +3157,9 @@ def main() -> None:
 
     # ------------------------------------------------------------ 4h. prefill and decode
     decode_phase(dev, reset_counts, counts, expect)
+
+    # ------------------------------------------------------------ 4i. training
+    train_phase(dev, reset_counts, counts, expect, launches)
 
     # ------------------------------------------------------------ 5. timing
     op, mask, rd = operands(READS, k_solve)

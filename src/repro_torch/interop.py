@@ -4,8 +4,10 @@ What crosses: PRNG keys, as the raw ``(2,)`` uint32 words of
 ``jax.random.key_data(key)``; problem instances (``EsProblem``'s mu, beta,
 m, lam and ``IsingProblem``'s h, J) as numpy arrays; a backbone's
 weights (any model family), the reference's ``init_params`` tree as
-nested dicts of numpy arrays; a prefill / decode cache, the reference's
-``init_cache`` tree (after any prefill or decode steps), likewise; a
+nested dicts of numpy arrays; its optimizer state (``train.optimizer.init``
+and the steps after it), likewise; a prefill / decode cache, the
+reference's ``init_cache`` tree (after any prefill or decode steps),
+likewise; a
 serving ``CalibrationProfile`` as its JSON text; and serving
 ``SelectionRequest``s as ``dataclasses.asdict`` dicts.
 :func:`carry_across` turns them into the port's objects, so a test can hand
@@ -20,7 +22,8 @@ import torch
 
 from repro_torch.core.formulation import EsProblem, IsingProblem
 from repro_torch.device import resolve_device
-from repro_torch.models.model import init_cache, model_from_tree
+from repro_torch.models.common import tree_items, tree_unflatten
+from repro_torch.models.model import Model, init_cache, model_from_tree, param_tree
 
 
 def carry_across(kind: str, *arrays, device=None, **fields):
@@ -32,6 +35,10 @@ def carry_across(kind: str, *arrays, device=None, **fields):
       * ``carry_across("params", tree, cfg=...)`` -> the port's
         ``models.Model`` (one module per index of each stacked axis; each
         leaf cast to its parameter's type);
+      * ``carry_across("opt", tree, cfg=...)`` -> the port's optimizer
+        state: ``step`` and the master, mu and nu trees split into the
+        port's per-layer tensors (``models.param_tree``'s structure), each
+        leaf in its array's type (a bfloat16 array as bf16);
       * ``carry_across("cache", tree, cfg=..., dtype=None)`` -> the port's
         cache tree (the same nesting and stacked axes; each leaf in the
         type ``models.init_cache(cfg, ..., dtype)`` gives it, so bf16
@@ -43,7 +50,7 @@ def carry_across(kind: str, *arrays, device=None, **fields):
         ``dataclasses.asdict``, its ``kofn`` a nested dict).
 
     Keys live on the CPU, like every key of the port, and so do profiles
-    and requests (plain data); problems, models and caches go to ``device``
+    and requests (plain data); problems, models, states and caches go to ``device``
     (``None``: the card; raises without one).
     """
     if kind == "key":
@@ -69,6 +76,9 @@ def carry_across(kind: str, *arrays, device=None, **fields):
     if kind == "cache":
         (tree,) = arrays
         return _cache_from_tree(fields["cfg"], tree, fields.get("dtype"), device)
+    if kind == "opt":
+        (tree,) = arrays
+        return _opt_from_tree(fields["cfg"], tree, device)
     tensors = [
         torch.tensor(np.asarray(a, np.float32), device=device) for a in arrays
     ]
@@ -79,7 +89,7 @@ def carry_across(kind: str, *arrays, device=None, **fields):
         h, j = tensors
         return IsingProblem(h=h, j=j)
     raise ValueError(f"unknown state kind {kind!r}; want 'key', 'es', 'ising', 'params', "
-                     "'cache', 'profile' or 'requests'")
+                     "'opt', 'cache', 'profile' or 'requests'")
 
 
 def _cache_from_tree(cfg, tree: dict, dtype, device) -> dict:
@@ -99,3 +109,35 @@ def _cache_from_tree(cfg, tree: dict, dtype, device) -> dict:
         return leaf.to(device=device, dtype=like.dtype)
 
     return walk(tree, template, "")
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # exact through float32
+        return torch.from_numpy(a.astype(np.float32)).to(device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def _opt_from_tree(cfg, tree: dict, device) -> dict:
+    """The reference's optimizer state as the port's: each stacked leaf of
+    master, mu and nu split along its stacked axes as ``param_tree`` of a
+    model of ``cfg`` (built on the meta device: no storage) nests it."""
+    with torch.device("meta"):
+        template = param_tree(Model(cfg))
+    template_items = tree_items(template)
+
+    def split(a, like):
+        if isinstance(like, list):
+            return [split(a[i], part) for i, part in enumerate(like)]
+        if a.shape != tuple(like.shape):
+            raise ValueError(f"optimizer leaf of shape {a.shape} for {tuple(like.shape)}")
+        return _tensor(a, device)
+
+    state = {"step": _tensor(np.asarray(tree["step"]).astype(np.int32), device)}
+    for name in ("master", "mu", "nu"):
+        items = tree_items(tree[name])
+        if [p for p, _ in items] != [p for p, _ in template_items]:
+            raise ValueError(f"optimizer {name} tree does not nest as {cfg.name}'s parameters")
+        state[name] = tree_unflatten(template, [
+            split(np.asarray(a), like) for (_, a), (_, like) in zip(items, template_items)])
+    return state

@@ -381,5 +381,15 @@ def flash_attention(q, k, v, *, causal=True, window=None):
     """Blocked attention of q (B, Sq, H, D) over k, v (B, Skv, KV, D) at the
     reference's 128-row tiles; see kernels/flash_attention.py.  A CUDA
     tensor launches the kernel (or raises), a CPU tensor runs its plain
-    version."""
+    version.
+
+    Forward only, as the reference's kernel is (it defines no VJP): with
+    autograd recording and an input that requires grad it raises rather
+    than return an output cut off from the graph.  Training runs
+    ``attn_impl="auto"``."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise RuntimeError(
+            "flash_attention has no backward: the reference's flash kernel defines none, so "
+            "a train step runs attn_impl='auto' (the chunked route); call flash under "
+            "torch.no_grad() or on inputs that do not require grad")
     return flash_attention_cuda(q, k, v, causal=causal, window=window)

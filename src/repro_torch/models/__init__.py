@@ -6,5 +6,7 @@ from repro_torch.models.model import (  # noqa: F401
     forward,
     init_cache,
     init_params,
+    param_tree,
     prefill,
+    train_loss,
 )

@@ -37,7 +37,9 @@ def param(gen: Optional[torch.Generator], shape, dtype, scale: Optional[float] =
     """A frozen parameter: ``fill`` everywhere if it is a number, or
     ``fill``'s values (a tensor of ``shape``); else ``dense_init`` from
     ``gen``, else uninitialised (for weights carried across).  Frozen
-    because this slice serves; training turns gradients on."""
+    (``requires_grad=False``) outside a train step, so inference builds no
+    graph: ``launch.steps.make_train_step``'s step turns gradients on for
+    its backward passes and off again, leaving no ``.grad`` behind."""
     device = gen.device if gen is not None else None
     if isinstance(fill, torch.Tensor):
         t = fill.to(dtype=dtype, device=device).reshape(shape)
@@ -151,3 +153,52 @@ def write_cache(cache: Optional[dict], new: dict) -> dict:
     for name, leaf in new.items():
         cache[name].copy_(leaf)
     return cache
+
+
+# ---------------------------------------------------------------------------
+# Parameter trees (``models.param_tree``): nested dicts whose leaves are
+# tensors, or where the reference stacks a leaf, nested lists of the port's
+# per-index tensors, one list level for each stacked axis.
+# ---------------------------------------------------------------------------
+
+
+def tree_items(tree, path=()) -> list:
+    """(path, leaf) pairs in the reference's flatten order: dict keys
+    sorted, as ``jax.tree.flatten`` orders them; a list is one leaf."""
+    if isinstance(tree, dict):
+        return [item for k in sorted(tree) for item in tree_items(tree[k], path + (k,))]
+    return [(path, tree)]
+
+
+def tree_unflatten(like, leaves):
+    """``like``'s dict structure holding ``leaves`` in :func:`tree_items`'
+    order."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(node[k]) for k in sorted(node)}
+        return next(it)
+
+    return build(like)
+
+
+def leaf_parts(leaf) -> list:
+    """The tensors of a leaf, row-major over its stacked axes."""
+    if isinstance(leaf, list):
+        return [t for part in leaf for t in leaf_parts(part)]
+    return [leaf]
+
+
+def map_parts(fn, leaf):
+    """``fn`` on each tensor of a leaf, keeping its list nesting."""
+    if isinstance(leaf, list):
+        return [map_parts(fn, part) for part in leaf]
+    return fn(leaf)
+
+
+def stacked_shape(leaf) -> tuple:
+    """The reference's shape of a leaf: its stacked axes, then a part's."""
+    if isinstance(leaf, list):
+        return (len(leaf),) + stacked_shape(leaf[0])
+    return tuple(leaf.shape)

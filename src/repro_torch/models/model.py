@@ -1,6 +1,7 @@
 """Model assembly, every family of the registry: twins of
 ``repro.models.model``'s ``init_params``, ``init_cache``, ``forward``,
-``prefill``, ``decode_step``, ``encode`` and ``embed_sentences``.
+``train_loss``, ``prefill``, ``decode_step``, ``encode`` and
+``embed_sentences``.
 
 The reference stacks its layers as pytrees with a leading ``n_groups``
 axis (and a second axis for a group's repeated sub-blocks) and scans over
@@ -34,10 +35,15 @@ Entry points:
   init_cache(cfg, batch, max_len, dtype=None, device=None) -> cache
   forward(cfg, model, tokens, positions=None, mode="train", cache=None,
           frontend=None, return_hidden=False) -> (logits or hidden, cache, aux)
+  train_loss(cfg, model, batch) -> (loss + aux, loss)
   prefill(cfg, model, tokens, cache, frontend=None) -> (logits, cache)
   decode_step(cfg, model, tokens, positions, cache) -> (last logits, cache)
   encode(cfg, model, frontend) -> encoder states (encdec)
   embed_sentences(cfg, model, tokens, seg_ids, n_segments, frontend=None)
+  param_tree(model) -> the parameters nested as the reference's tree
+
+The reference's ``_dummy_cache`` and ``_train_cache_len`` exist for its
+scan's signature; train mode here takes no cache, so they have no twin.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
@@ -353,10 +360,17 @@ def forward(
                 raise ValueError(f"{cfg.name}: vlm/encdec need frontend embeddings")
             memory = encode(cfg, model, frontend) if cfg.family == "encdec" else frontend
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    # The reference's jax.checkpoint(group_fn): under grad, a group keeps only
+    # its input and recomputes its activations in the backward pass.
+    remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
     for i, group in enumerate(model.layers):
         gc = None if mode == "train" else index_tree(cache["layers"], i)
-        x, a = _group_apply(cfg, group, model.shared, x, positions, mode=mode, cache=gc,
-                            memory=memory)
+        if remat:
+            x, a = checkpoint(_group_apply, cfg, group, model.shared, x, positions, mode=mode,
+                              cache=None, memory=memory, use_reentrant=False)
+        else:
+            x, a = _group_apply(cfg, group, model.shared, x, positions, mode=mode, cache=gc,
+                                memory=memory)
         aux = aux + a
     new_cache = None
     if mode != "train":
@@ -366,6 +380,21 @@ def forward(
     if return_hidden:
         return x, new_cache, aux
     return _logits(cfg, model, x), new_cache, aux
+
+
+def train_loss(cfg, model: Model, batch: dict) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Next-token cross-entropy over the float32 logits: (loss + the routers'
+    aux loss, loss).  batch: tokens (B, S), targets (B, S) with -1 at masked
+    positions, and frontend (B, T, d) where the family needs one."""
+    logits, _, aux = forward(cfg, model, batch["tokens"], mode="train",
+                             frontend=batch.get("frontend"))
+    targets = batch["targets"]
+    mask = targets >= 0
+    safe = torch.clamp(targets, min=0).long()
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1)
+    return loss + aux, loss
 
 
 def prefill(cfg, model: Model, tokens: torch.Tensor, cache: dict, *,
@@ -429,3 +458,27 @@ def model_from_tree(cfg, tree: dict, device=None) -> Model:
     walk(model, tree, "", ())
     model.load_state_dict(state, strict=True)
     return model.to(device)
+
+
+def param_tree(module: torch.nn.Module) -> dict:
+    """The module's parameters nested as the reference's ``init_params``
+    tree: dicts by name, and where the reference stacks a leaf (over
+    ``layers``' groups, a group's ``self`` / ``mamba`` / ``mlstm``
+    sub-blocks, ``encoder.blocks``) a list of the port's per-index tensors,
+    one level of list for each stacked axis.  The inverse of
+    :func:`model_from_tree`'s split; the leaves are the model's own
+    parameters (no copy)."""
+    tree = dict(module.named_parameters(recurse=False))
+    for name, child in module.named_children():
+        if isinstance(child, torch.nn.ModuleList):
+            tree[name] = _stack_trees([param_tree(part) for part in child])
+        else:
+            tree[name] = param_tree(child)
+    return tree
+
+
+def _stack_trees(trees: list) -> dict:
+    """Trees of one shape as one tree whose leaves are the lists of theirs."""
+    first = trees[0]
+    return {k: (_stack_trees([t[k] for t in trees]) if isinstance(first[k], dict)
+                else [t[k] for t in trees]) for k in first}

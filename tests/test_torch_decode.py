@@ -219,9 +219,9 @@ def test_step_makers_match_reference(name):
 def test_step_makers_raise_for_a_mesh():
     cfg = get_config("tinyllama-1.1b").reduced()
     for make in (tsteps.make_prefill_step, tsteps.make_decode_step):
-        with pytest.raises(NotImplementedError, match="queue 3: mesh"):
+        with pytest.raises(NotImplementedError, match="item 2: mesh"):
             make(cfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="queue 3: mesh"):
+    with pytest.raises(NotImplementedError, match="item 2: mesh"):
         tsteps.make_embed_step(cfg, 4, mesh=object())
 
 
