@@ -158,6 +158,15 @@ Phases, each of which must pass or the script exits non-zero:
      Ising fleet step (``make_ising_solve_step``: the batched trajectory and
      energy kernels, one launch each) at D 256 x R 32 x N 64 x 1,000 steps,
      energies exact, against its plain versions;
+  4j. the mesh and distributed layer (``distributed_phase``) on a one-rank
+     NCCL group and a 1 x 1 ``DeviceMesh``: ``fleet_solve`` on one rank's
+     shard of the dry run's 16 x 16 fleet cell (D 256 x R 32 x N 64 x 1,000
+     steps, 4i's instances) bit for bit against ``make_ising_solve_step``,
+     its two launches and its collectives counted; one sharded
+     ``make_train_step(mesh=...)`` step of tinyllama-1.1b at B 8 x 2,048
+     against the unsharded step (loss within 1e-3), ms and launches beside
+     it; ``python -m repro_torch.launch.dryrun`` for tinyllama-1.1b x
+     train_4k and the ising-fleet cell in subprocesses, their records ok;
   5. time every kernel, its plain version and its bound (at the padded
      shapes the reference's kernels take, and at the instances' own n spins
      and reads; a COBI anneal row's bound_ms is the latter, since its loop
@@ -197,12 +206,15 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+from repro_torch.core.hardware import H100_SXM  # noqa: E402  (no torch import)
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): float32 outside the
 # tensor cores, bf16 on the tensor cores, and HBM3 bandwidth.
-PEAK_F32_FLOPS = 67e12
-PEAK_BF16_FLOPS = 989.4e12
-PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = H100_SXM.peak_f32_flops
+PEAK_BF16_FLOPS = H100_SXM.peak_bf16_flops
+PEAK_BYTES_PER_S = H100_SXM.hbm_bandwidth
 
 STEPS, READS, ITERATIONS = 400, 8, 10
 TRAJ_TOL = 2e-4  # rtol = atol at 50 steps: the reference's kernel-vs-oracle bound
@@ -245,6 +257,9 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, FIXED_STEPS = 8, 2048, 6, 8
 GRAD_BATCH, GRAD_SEQ = 2, 128
 FLEET_DOCS, FLEET_READS, FLEET_SPINS, FLEET_STEPS = 256, 32, 64, 1000
 FLEET_CHECK_DOCS, FLEET_CHECK_STEPS = 4, 50
+# Phase 4j (distributed): the sharded train step's loss against the
+# unsharded step's from the same weights and batch.
+SHARDED_LOSS_TOL = 1e-3
 
 
 def fail(msg: str) -> None:
@@ -1450,7 +1465,9 @@ def train_phase(dev, reset_counts, counts, expect, launches) -> None:
     them against the step's plain versions (spins and energies equal
     wherever no phase lies within 2e-4 of the readout boundary), and at
     1,000 steps the mean best energy against a batched plain twin's
-    (within 1%: full anneals are judged on energy quality).
+    (within 1%: full anneals are judged on energy quality).  Returns the
+    fleet's scaled instances and the warm step's ms and launches, which
+    phase 4j reuses.
     """
     import copy
     import gc
@@ -1986,6 +2003,185 @@ def train_phase(dev, reset_counts, counts, expect, launches) -> None:
     walls_by_part["d"] = time.perf_counter() - t_part
     print(f"train phase wall: {time.perf_counter() - t_phase:.1f} s ("
           + ", ".join(f"({k}) {v:.1f} s" for k, v in walls_by_part.items()) + ")")
+    return {"h_s": h_s, "j_s": j_s, "step_ms": med,
+            "launches_a_step": split["launches_a_step"]}
+
+
+def distributed_phase(dev, reset_counts, counts, expect, launches, train) -> None:
+    """Phase 4j: the mesh and distributed layer on the card.
+
+    The dry run of (c) starts first, in two subprocesses on the host's
+    cores, while the card works.  (a) A one-rank NCCL group (a file store
+    in a temporary directory) and a 1 x 1 ``DeviceMesh`` on ``cuda``:
+    ``fleet_solve`` at D 256 x R 32 x N 64 x 1,000 steps, one rank's shard
+    of the dry run's 16 x 16 fleet cell, on phase 4i's chip-integer
+    instances scaled by powers of two (``train["h_s"]``, ``["j_s"]``): its
+    spins and energies bit for bit against ``make_ising_solve_step`` on the
+    same pre-scaled inputs and phases (energies scaled back the same way),
+    the two kernel launches of a call (added to the kernels line) and its
+    collectives (three all-reduces, two all-gathers), ms warm, and the peak
+    memory beside the dry run's prediction for the cell.  (b) tinyllama-1.1b
+    at full width, ``init_params(seed 0)``, one ``make_train_step`` step of
+    ``SyntheticTextTask``'s batch 0 (B 8 x 2,048) unsharded and one over the
+    mesh, each model built afresh from the seed: the losses within
+    SHARDED_LOSS_TOL, then a second step of each under torch.profiler, its
+    ms and device launches beside phase 4i's (DTensor's dispatch is host
+    work).  (c) ``python -m repro_torch.launch.dryrun --arch tinyllama-1.1b
+    --shape train_4k --mesh single`` and ``--arch ising-fleet --mesh
+    single``: exit 0 and an ``ok`` record each, printed.
+    """
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import prng
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTextTask
+    from repro_torch.distributed import fleet
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.models import init_params
+    from repro_torch.train import optimizer as opt
+
+    def gb(n: float) -> str:
+        return f"{n / 1e9:.3f} GB"
+
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dist_"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    cells = {"tinyllama-1.1b__train_4k__single": ["--arch", "tinyllama-1.1b", "--shape",
+                                                  "train_4k", "--mesh", "single"],
+             "ising-fleet__solve__single": ["--arch", "ising-fleet", "--mesh", "single"]}
+    dry = {name: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *args, "--out", str(tmp / "dry")],
+        env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name, args in cells.items()}
+    try:
+        dist.init_process_group("nccl", init_method=f"file://{tmp / 'store'}", rank=0,
+                                world_size=1,
+                                device_id=torch.device("cuda", torch.cuda.current_device()))
+        mesh = tmesh.make_mesh((1, 1), ("data", "model"))
+        print(f"distributed: one-rank {dist.get_backend()} group, mesh {mesh}")
+
+        # ------------------------------------------------------------ (a)
+        h_s, j_s = train["h_s"], train["j_s"]
+        d, n = h_s.shape
+        r = FLEET_READS
+        key = prng.key(7)
+        denom = 2.0 * torch.amax(torch.sum(torch.abs(j_s), dim=-1), dim=-1) + torch.amax(
+            torch.abs(h_s), dim=-1)
+        denom = torch.clamp(denom, min=1e-9)[:, None]
+        phi0 = prng.uniform(key, (d, r, n), 0.0, 2.0 * math.pi, device=dev)
+        want_s, want_e = tsteps.make_ising_solve_step(steps=FLEET_STEPS)(
+            h_s / denom, j_s / denom[..., None], phi0)
+        want_e = want_e * denom[:, 0]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        before = dict(fleet.COLLECTIVES)
+        reset_counts()
+        got_s, got_e = fleet.fleet_solve(mesh, h_s, j_s, key, replicas_per_device=r,
+                                         steps=FLEET_STEPS)
+        torch.cuda.synchronize()
+        c = counts()
+        peak = torch.cuda.max_memory_allocated() - base
+        coll = {k: v - before.get(k, 0) for k, v in fleet.COLLECTIVES.items()}
+        if c != expect(cobi_trajectory_batched=1, ising_energy_batched=1):
+            fail(f"distributed fleet: a call launched {c}; want one batched trajectory and one "
+                 "batched energy")
+        for name in ("cobi_trajectory_batched", "ising_energy_batched"):
+            launches[name] += c[name]
+        if coll != {"all_reduce": 3, "all_gather": 2}:
+            fail(f"distributed fleet: collectives {coll}; want 3 all-reduces and 2 all-gathers")
+        same_s, same_e = torch.equal(got_s, want_s), torch.equal(got_e, want_e)
+        if not (same_s and same_e):
+            fail(f"distributed fleet: spins equal {same_s}, energies equal {same_e} against "
+                 "make_ising_solve_step on the same inputs")
+        warm_ms = cuda_ms(lambda: fleet.fleet_solve(mesh, h_s, j_s, key, replicas_per_device=r,
+                                                    steps=FLEET_STEPS), reps=3, warmup=1)
+        reset_counts()
+        print(f"distributed fleet (fleet_solve, D {d} x R {r} x N {n}, {FLEET_STEPS} steps, "
+              f"one rank of the 16 x 16 cell): spins and energies == make_ising_solve_step bit "
+              f"for bit; launches a call {{'cobi_trajectory_batched': 1, "
+              f"'ising_energy_batched': 1}}; collectives a call {coll}; warm {warm_ms:.3f} ms "
+              f"(CUDA events); peak memory above the inputs {gb(peak)}")
+
+        # ------------------------------------------------------------ (b)
+        cfg = get_config("tinyllama-1.1b")
+        ocfg = opt.OptConfig(total_steps=4)
+        data = SyntheticTextTask(DataConfig(batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ),
+                                 cfg.vocab_size)
+        runs = {}
+        for name, step_mesh in (("unsharded", None), ("sharded", mesh)):
+            gc.collect()
+            torch.cuda.empty_cache()
+            model = init_params(cfg, 0)
+            state = opt.init(model)
+            step = tsteps.make_train_step(cfg, ocfg, mesh=step_mesh)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model, state, m = step(model, state, data.batch(0))
+            loss = float(m["loss"])
+            torch.cuda.synchronize()
+            first = time.perf_counter() - t0
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                model, state, m = step(model, state, data.batch(1))
+                float(m["loss"])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            split = decode_split(prof, wall, 1, prefix="train.", regions=())
+            runs[name] = {"loss": loss, "first_s": first, "wall_ms": wall * 1e3,
+                          "launches": split["launches_a_step"],
+                          "busy_ms": split["busy_ms_a_step"], "idle_share": split["idle_share"],
+                          "placements": str(getattr(model.embed, "placements", None))}
+            del model, state, m, prof
+        if counts() != expect():
+            fail(f"distributed train: kernels of the port launched {counts()}; the train path "
+                 "has none")
+        diff = abs(runs["sharded"]["loss"] - runs["unsharded"]["loss"])
+        print("distributed train tinyllama-1.1b (B 8 x 2048, one step from init_params(0)): "
+              + json.dumps(runs) + f"; loss difference {diff:.3e}; phase 4i's warm step "
+              f"{train['step_ms']:.1f} ms, {train['launches_a_step']:.0f} launches")
+        if not diff <= SHARDED_LOSS_TOL or "Shard" not in runs["sharded"]["placements"]:
+            fail(f"distributed train: sharded loss {runs['sharded']['loss']} against "
+                 f"{runs['unsharded']['loss']}, embed placements "
+                 f"{runs['sharded']['placements']}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+    # ---------------------------------------------------------------- (c)
+    try:
+        for name, proc in dry.items():
+            out, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                fail(f"distributed dry run {name}: exit {proc.returncode}: {err[-2000:]}")
+            rec = json.loads((tmp / "dry" / f"{name}.json").read_text())
+            print(f"distributed dry run: {out.strip()}")
+            print(f"distributed dry run record {name}: " + json.dumps(
+                {k: rec.get(k) for k in ("status", "chips", "seconds", "arg_bytes_per_chip",
+                                         "peak_bytes_per_chip", "flops_per_chip",
+                                         "collectives_per_chip", "fits")}))
+            if rec.get("status") != "ok":
+                fail(f"distributed dry run {name}: {rec.get('status')} {rec.get('error')}")
+            if name.startswith("ising-fleet"):
+                print(f"distributed fleet peak memory on the card {gb(peak)} against the dry "
+                      f"run's per-rank peak {gb(rec['peak_bytes_per_chip'])} (plain versions "
+                      f"on the host, fake tensors)")
+    finally:
+        for proc in dry.values():
+            if proc.poll() is None:
+                proc.kill()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"distributed phase wall: {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> None:
@@ -2001,7 +2197,6 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: the port's smoke run needs a GPU")
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import prng
     from repro_torch.core import SolveConfig, improved_ising, solve_es
     from repro_torch.core import metrics, pipeline
@@ -3159,7 +3354,10 @@ def main() -> None:
     decode_phase(dev, reset_counts, counts, expect)
 
     # ------------------------------------------------------------ 4i. training
-    train_phase(dev, reset_counts, counts, expect, launches)
+    train = train_phase(dev, reset_counts, counts, expect, launches)
+
+    # ------------------------------------------------------------ 4j. distributed
+    distributed_phase(dev, reset_counts, counts, expect, launches, train)
 
     # ------------------------------------------------------------ 5. timing
     op, mask, rd = operands(READS, k_solve)

@@ -5,6 +5,12 @@ brute-force CPU baselines' models.
 
 COBI constants are the paper's: ~200 us per anneal at 25 mW, and 18.9 us of
 host objective evaluation per stochastic-rounding iteration at 20 W.
+
+``GpuChip`` / ``H100_SXM`` are the roofline constants of the card the port
+runs on (NVIDIA's datasheet figures, dense, at 700 W): ``launch/dryrun.py``
+checks a cell's per-rank memory against them and ``chip_smoke.py`` divides
+by their peaks.  The reference's ``TpuChip`` / ``TPU_V5E`` have no twin:
+the port targets no TPU, and a TPU's rates are not the card's.
 """
 
 from __future__ import annotations
@@ -62,3 +68,27 @@ def brute_hardware(num_candidates: int) -> SolverHardware:
         host_eval_seconds=0.0,  # enumeration needs no extra per-iteration eval
         host_power_w=20.0,
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class GpuChip:
+    """Roofline constants of one card (datasheet figures, dense)."""
+
+    name: str
+    power_limit_w: float
+    peak_bf16_flops: float  # FLOP/s on the tensor cores
+    peak_f32_flops: float  # FLOP/s of float32 FMA outside the tensor cores
+    hbm_bandwidth: float  # bytes/s
+    hbm_bytes: float
+    nvlink_bandwidth: float  # bytes/s a direction
+
+
+H100_SXM = GpuChip(
+    name="NVIDIA H100 80GB HBM3",
+    power_limit_w=700.0,
+    peak_bf16_flops=989.4e12,
+    peak_f32_flops=67e12,
+    hbm_bandwidth=3.35e12,
+    hbm_bytes=80e9,
+    nvlink_bandwidth=450e9,
+)

@@ -24,6 +24,7 @@ from typing import Optional
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.context import merge_heads, on_local_heads, split_heads, write_rows
 from repro_torch.kernels import ops
 from repro_torch.models.common import apply_rope, param
 
@@ -71,9 +72,9 @@ def _project_qkv(p: Attention, cfg, x, kv_src):
     v = kv_src @ p.wv
     if cfg.qkv_bias:
         q, k, v = q + p.bq, k + p.bk, v + p.bv
-    q = q.reshape(b, s, h, hd)
-    k = k.reshape(b, kv_src.shape[1], kv, hd)
-    v = v.reshape(b, kv_src.shape[1], kv, hd)
+    q = split_heads(q, h, hd)
+    k = split_heads(k, kv, hd)
+    v = split_heads(v, kv, hd)
     return q, k, v
 
 
@@ -164,8 +165,11 @@ def self_attention(p: Attention, cfg, x, positions, *, mode: str = "train",
         if impl == "flash" and mode == "train" and s % min(128, s) == 0 and q.shape[-1] <= 128:
             out = ops.flash_attention(q, k, v, causal=causal, window=w)
         elif impl != "sdpa" and chunk and s % chunk == 0 and s > chunk:
-            out = _sdpa_chunked(q, k, v, positions, scale, causal=causal, window=w,
-                                chunk=chunk, probs_dtype=probs_dtype)
+            out = on_local_heads(
+                lambda q, k, v, pos: _sdpa_chunked(q, k, v, pos, scale, causal=causal,
+                                                   window=w, chunk=chunk,
+                                                   probs_dtype=probs_dtype),
+                q, k, v, positions)
         else:
             q_pos = positions[:, :, None]  # (B, S, 1)
             k_pos = positions[:, None, :]  # (B, 1, S)
@@ -175,7 +179,9 @@ def self_attention(p: Attention, cfg, x, positions, *, mode: str = "train",
                 mask = torch.ones((b, s, s), dtype=torch.bool, device=x.device)
             if w is not None and causal:
                 mask &= k_pos > q_pos - w
-            out = _sdpa(q, k, v, mask, scale, probs_dtype=probs_dtype)
+            out = on_local_heads(
+                lambda q, k, v, mask: _sdpa(q, k, v, mask, scale, probs_dtype=probs_dtype),
+                q, k, v, mask.expand(b, s, s))
         new_cache = None
         if mode == "prefill" and cache is not None:
             s_c = cache["k"].shape[1]
@@ -183,18 +189,18 @@ def self_attention(p: Attention, cfg, x, positions, *, mode: str = "train",
                 # Keep the last S_c keys, slot = pos % S_c.
                 tail_pos = positions[0, -s_c:]
                 slots = (tail_pos % s_c).long()
-                cache["k"].index_copy_(1, slots, k[:, -s_c:].to(cache["k"].dtype))
-                cache["v"].index_copy_(1, slots, v[:, -s_c:].to(cache["v"].dtype))
-                cache["pos"].index_copy_(0, slots, tail_pos.to(torch.int32))
+                write_rows(cache["k"], 1, slots, k[:, -s_c:].to(cache["k"].dtype))
+                write_rows(cache["v"], 1, slots, v[:, -s_c:].to(cache["v"].dtype))
+                write_rows(cache["pos"], 0, slots, tail_pos.to(torch.int32))
             else:
                 if s > s_c:
                     raise ValueError(f"a prefill of {s} tokens does not fit a cache of {s_c} "
                                      "slots without a sliding window")
-                cache["k"][:, :s] = k
-                cache["v"][:, :s] = v
-                cache["pos"][:s] = positions[0]
+                write_rows(cache["k"], 1, slice(0, s), k)
+                write_rows(cache["v"], 1, slice(0, s), v)
+                write_rows(cache["pos"], 0, slice(0, s), positions[0])
             new_cache = cache
-        return out.reshape(b, s, -1) @ p.wo, new_cache
+        return merge_heads(out) @ p.wo, new_cache
 
     # ---- decode: s == 1, write kv at slot, attend over the cache ----
     if mode != "decode" or cache is None or s != 1:
@@ -203,16 +209,18 @@ def self_attention(p: Attention, cfg, x, positions, *, mode: str = "train",
     s_c = cache["k"].shape[1]
     pos0 = positions[0, :1]  # (1,): one position for the whole batch (batched serve)
     slot = (pos0 % s_c if w is not None else torch.clamp(pos0, 0, s_c - 1)).long()
-    cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
-    cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
-    cache["pos"].index_copy_(0, slot, pos0.to(torch.int32))
+    write_rows(cache["k"], 1, slot, k.to(cache["k"].dtype))
+    write_rows(cache["v"], 1, slot, v.to(cache["v"].dtype))
+    write_rows(cache["pos"], 0, slot, pos0.to(torch.int32))
     cpos = cache["pos"]
     valid = (cpos >= 0) & (cpos <= pos0)
     if w is not None:
         valid &= cpos > pos0 - w
     mask = valid[None, None, :].expand(b, 1, s_c)
-    out = _sdpa(q, cache["k"], cache["v"], mask, scale, probs_dtype=probs_dtype)
-    return out.reshape(b, 1, -1) @ p.wo, cache
+    out = on_local_heads(
+        lambda q, k, v, mask: _sdpa(q, k, v, mask, scale, probs_dtype=probs_dtype),
+        q, cache["k"], cache["v"], mask)
+    return merge_heads(out) @ p.wo, cache
 
 
 def cross_attention(p: Attention, cfg, x, memory, *, gated: bool = False) -> torch.Tensor:
@@ -220,8 +228,8 @@ def cross_attention(p: Attention, cfg, x, memory, *, gated: bool = False) -> tor
     states, with no mask; scaled by tanh(gate) when ``gated``."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x, memory)
-    out = _sdpa(q, k, v, None, cfg.hd**-0.5)
-    out = out.reshape(b, s, -1) @ p.wo
+    out = on_local_heads(lambda q, k, v: _sdpa(q, k, v, None, cfg.hd**-0.5), q, k, v)
+    out = merge_heads(out) @ p.wo
     if gated and hasattr(p, "gate"):
         out = torch.tanh(p.gate).to(out.dtype) * out
     return out

@@ -14,12 +14,6 @@ import torch
 import torch.nn.functional as F
 
 
-def not_ported(what: str, item: str) -> NotImplementedError:
-    """The error for a part of the reference's model stack the port has not
-    reached; ``item`` names its ROADMAP item by title."""
-    return NotImplementedError(f"{what} is not ported to repro_torch yet: ROADMAP {item}")
-
-
 def dense_init(gen: torch.Generator, shape, dtype, scale: Optional[float] = None):
     """Truncated-normal (+-2 sigma) fan-in init from ``gen``, drawn on the
     generator's device.  The reference's distribution, not its numbers:

@@ -11,6 +11,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.context import constrain, on_local_rows
 from repro_torch.models.common import activation, param
 
 
@@ -29,7 +30,7 @@ class Mlp(torch.nn.Module):
 
 def mlp_apply(p: Mlp, cfg, x: torch.Tensor) -> torch.Tensor:
     act = activation(cfg.act)
-    h = x @ p.w_in
+    h = constrain(x @ p.w_in, "batch", None, "model")
     if cfg.gated_mlp:
         h = act(x @ p.w_gate) * h
     else:
@@ -65,12 +66,26 @@ def _route(p: Moe, cfg, x):
     """Shared router: (gate_vals, expert_idx, pos, keep, onehot, cap, aux).
 
     Each batch row routes its own tokens (capacity and slot positions count
-    within the row), so a row's outputs never depend on its batch-mates."""
+    within the row), so a row's outputs never depend on its batch-mates
+    (over a mesh each rank routes its own rows); the aux loss reads the
+    whole batch."""
     m = cfg.moe
-    b, s, _ = x.shape
     e, k = m.num_experts, m.top_k
-    cap = int(m.capacity_factor * k * s / e) or 1
-    logits = x.to(torch.float32) @ p.router  # (B, S, E)
+    cap = int(m.capacity_factor * k * x.shape[1] / e) or 1
+    probs, gate_vals, expert_idx, pos, keep, onehot = on_local_rows(
+        lambda x, router: _route_rows(cfg, x, router, cap), x, weights=(p.router,))
+    density = torch.mean(onehot.sum(2), dim=(0, 1))
+    router_mean = torch.mean(probs, dim=(0, 1))
+    aux = m.router_aux_weight * e * torch.sum(density / k * router_mean)
+    return gate_vals, expert_idx, pos, keep, onehot, cap, aux
+
+
+def _route_rows(cfg, x, router, cap):
+    """The router's per-token part: (probs, gate_vals, expert_idx, pos,
+    keep, onehot)."""
+    b, s, _ = x.shape
+    e, k = cfg.moe.num_experts, cfg.moe.top_k
+    logits = x.to(torch.float32) @ router  # (B, S, E)
     probs = torch.softmax(logits, dim=-1)
     # jax.lax.top_k breaks ties toward the lower index; torch.topk promises
     # no order for ties, a stable descending sort does.
@@ -84,11 +99,7 @@ def _route(p: Moe, cfg, x):
     pos = torch.sum(pos_in_e * flat, dim=-1).reshape(b, s, k).to(torch.int64)
     keep = pos < cap
     gate_vals = gate_vals * keep
-
-    density = torch.mean(onehot.sum(2), dim=(0, 1))
-    router_mean = torch.mean(probs, dim=(0, 1))
-    aux = m.router_aux_weight * e * torch.sum(density / k * router_mean)
-    return gate_vals, expert_idx, pos, keep, onehot, cap, aux
+    return probs, gate_vals, expert_idx, pos, keep, onehot
 
 
 def _expert_ffn(p: Moe, cfg, xe):
@@ -96,6 +107,7 @@ def _expert_ffn(p: Moe, cfg, xe):
     act = activation(cfg.act)
     hidden = act(torch.einsum("becd,edf->becf", xe, p.w_gate)) * torch.einsum(
         "becd,edf->becf", xe, p.w_in)
+    hidden = constrain(hidden, "batch", None, None, "model")
     return torch.einsum("becf,efd->becd", hidden, p.w_out)
 
 
@@ -136,18 +148,25 @@ def moe_apply(p: Moe, cfg, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]
     e = cfg.moe.num_experts
     gate_vals, expert_idx, pos, keep, onehot, cap, aux = _route(p, cfg, x)
     if cfg.moe_impl == "scatter":
-        slots = _slots(expert_idx, pos, cap)
-        ye = _expert_ffn(p, cfg, _dispatch(x, slots, keep, e, cap))
-        y = _combine(ye, slots, gate_vals, keep, x.dtype)
+        # Row by row (each rank's rows over a mesh).
+        xe = on_local_rows(lambda x, i, q, kp: _dispatch(x, _slots(i, q, cap), kp, e, cap),
+                           x, expert_idx, pos, keep)
+        ye = _expert_ffn(p, cfg, xe)
+        y = on_local_rows(lambda ye, i, q, g, kp: _combine(ye, _slots(i, q, cap), g, kp, x.dtype),
+                          ye, expert_idx, pos, gate_vals, keep)
     else:
         pos_oh = F.one_hot(torch.clamp(pos, max=cap - 1), cap).to(torch.float32)
         pos_oh = pos_oh * keep[..., None]  # jax.nn.one_hot gives a zero row past cap
         dispatch = torch.einsum("bske,bskc->bsec", onehot, pos_oh)
         combine = torch.einsum("bsec,bsk,bske->bsec", dispatch, gate_vals, onehot)
         xe = torch.einsum("bsd,bsec->becd", x.to(torch.float32), dispatch).to(x.dtype)
+        xe = constrain(xe, "batch", None, None, None)
         ye = _expert_ffn(p, cfg, xe)
         y = torch.einsum("becd,bsec->bsd", ye.to(torch.float32), combine).to(x.dtype)
     if cfg.moe.d_ff_shared:
-        sg = torch.sigmoid(x @ p.shared_gate).to(x.dtype)
-        y = y + sg * mlp_apply(p.shared, cfg, x)
+        sg = on_local_rows(lambda x, w: torch.sigmoid(x @ w).to(x.dtype), x,
+                           weights=(p.shared_gate,))
+        # Over a mesh the shared MLP's output (a partial sum over the model
+        # axis) is reduced onto the batch layout first.
+        y = y + sg * constrain(mlp_apply(p.shared, cfg, x), "batch", None, None)
     return y, aux

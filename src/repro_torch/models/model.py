@@ -55,6 +55,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.context import constrain, fsdp_gathered, lookup_rows
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import ssd, xlstm
@@ -109,10 +110,14 @@ def _attn_block_apply(p: Block, cfg, x, positions, *, mode="train", cache=None, 
         mode_eff = "train" if (not causal and mode != "decode") else mode
         a, _ = attn.self_attention(p.attn, cfg, h, positions, mode=mode_eff, cache=cache,
                                    causal=causal)
-    x = x + a
+    # Over a mesh each sub-layer's output (a partial sum over the model
+    # axis after its row-parallel projection) is reduced onto the batch
+    # layout before the residual add, so the residual stream keeps one
+    # layout through the block.
+    x = x + constrain(a, "batch", None, None)
     if hasattr(p, "cross_attn"):  # enc-dec decoder block
         h = rmsnorm(p.cross_norm.scale, x, eps=cfg.norm_eps)
-        x = x + attn.cross_attention(p.cross_attn, cfg, h, memory)
+        x = x + constrain(attn.cross_attention(p.cross_attn, cfg, h, memory), "batch", None, None)
     h = rmsnorm(p.mlp_norm.scale, x, eps=cfg.norm_eps)
     if hasattr(p, "moe"):
         m, aux = mlp_mod.moe_apply(p.moe, cfg, h)
@@ -122,7 +127,7 @@ def _attn_block_apply(p: Block, cfg, x, positions, *, mode="train", cache=None, 
         m = torch.zeros_like(h)
     if cross:
         m = torch.tanh(p.ffn_gate).to(m.dtype) * m
-    return x + m, aux
+    return x + constrain(m, "batch", None, None), aux
 
 
 class MixerBlock(torch.nn.Module):
@@ -140,7 +145,7 @@ def _mixer_block_apply(p: MixerBlock, cfg, x, name: str, apply_fn, *, mode, cach
     ``cache`` (its views) in place."""
     h = rmsnorm(p.norm.scale, x, eps=cfg.norm_eps)
     y, _ = apply_fn(getattr(p, name), cfg, h, mode=mode, cache=cache)
-    return x + y
+    return x + constrain(y, "batch", None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -180,8 +185,19 @@ def _group_init(cfg, gen):
 
 def _group_apply(cfg, gp, shared, x, positions, *, mode, cache, memory):
     """Apply one super-block: (x, aux).  ``cache`` is this group's views
-    (None in train mode); each sub-block takes its own."""
+    (None in train mode); each sub-block takes its own.  Over a mesh the
+    group's weights are gathered over the data axes for the group's span
+    (inside the remat boundary, so the recomputation gathers them again)."""
+    with fsdp_gathered(gp), fsdp_gathered(shared):
+        return _group_body(cfg, gp, shared, x, positions, mode=mode, cache=cache,
+                           memory=memory)
+
+
+def _group_body(cfg, gp, shared, x, positions, *, mode, cache, memory):
     fam = cfg.family
+    # Pin activations to batch sharding at every super-block boundary so the
+    # 2-D weight sharding resolves to FSDP gathers, not batch replication.
+    x = constrain(x, "batch", None, None)
     if fam in ("dense", "moe", "encdec"):
         return _attn_block_apply(gp, cfg, x, positions, mode=mode, cache=cache, memory=memory)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -273,7 +289,8 @@ def encode(cfg, model: "Model", frontend: torch.Tensor) -> torch.Tensor:
     positions = torch.arange(t, device=frontend.device)[None].expand(b, t)
     x = frontend
     for blk in model.encoder.blocks:
-        x, _ = _attn_block_apply(blk, cfg, x, positions, causal=False)
+        with fsdp_gathered(blk):
+            x, _ = _attn_block_apply(blk, cfg, x, positions, causal=False)
     return rmsnorm(model.encoder.norm.scale, x, eps=cfg.norm_eps)
 
 
@@ -314,7 +331,9 @@ def init_params(cfg, seed: int, device=None) -> Model:
 
 def _logits(cfg, model: Model, x: torch.Tensor) -> torch.Tensor:
     x = rmsnorm(model.final_norm.scale, x, eps=cfg.norm_eps)
-    logits = x @ (model.embed.T if cfg.tie_embeddings else model.unembed)
+    with fsdp_gathered(model, recurse=False):
+        logits = x @ (model.embed.T if cfg.tie_embeddings else model.unembed)
+    logits = constrain(logits, "batch", None, "model")
     # Mask padded vocab columns so they never win.
     pad_mask = torch.arange(cfg.padded_vocab, device=x.device) < cfg.vocab_size
     return torch.where(pad_mask, logits.to(torch.float32), -1e30)
@@ -350,7 +369,10 @@ def forward(
     # The scale is rounded to the working type first, as the reference's
     # jnp.asarray(d_model**0.5, dtype) is (27.71 -> 27.75 in bf16); a CPU
     # 0-dim tensor is passed to the kernel as a scalar (no copy to the card).
-    x = model.embed[tokens.long()] * torch.tensor(cfg.d_model**0.5, dtype=cfg.dtype)
+    with fsdp_gathered(model, recurse=False):
+        x = lookup_rows(model.embed, tokens.long()) * torch.tensor(cfg.d_model**0.5,
+                                                                    dtype=cfg.dtype)
+    x = constrain(x, "batch", None, None)
     memory = None
     if cfg.family in ("vlm", "encdec"):
         if mode == "decode":

@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.context import constrain, on_local_rows
 from repro_torch.models.common import RMSNorm, causal_conv1d, param, rmsnorm, write_cache
 
 
@@ -133,7 +134,7 @@ def mamba2_apply(p: Mamba2, cfg, x: torch.Tensor, *, mode: str = "train",
     h = d_in // ssm.head_dim
     ph = ssm.head_dim
 
-    proj = x @ p.in_proj  # (B, S, 2 d_in + 2 N + H)
+    proj = constrain(x @ p.in_proj, "batch", None, "model")  # (B, S, 2 d_in + 2 N + H)
     z, xbc, dt_raw = torch.split(proj, [d_in, d_in + 2 * n, h], dim=-1)
     conv_state = cache["conv"] if (cache is not None and mode == "decode") else None
     xbc, new_conv = causal_conv1d(xbc, p.conv_w, state=conv_state)
@@ -153,11 +154,12 @@ def mamba2_apply(p: Mamba2, cfg, x: torch.Tensor, *, mode: str = "train",
     if mode == "decode":
         if cache is None or s != 1:
             raise ValueError(f"mamba2 decode takes one token and a cache, got S {s}")
-        y1, new_state = linear_attention_step(q[:, 0], k[:, 0], v[:, 0], a[:, 0],
-                                              cache["state"])
+        y1, new_state = on_local_rows(linear_attention_step, q[:, 0], k[:, 0], v[:, 0],
+                                      a[:, 0], cache["state"])
         y = y1[:, None]
-    else:
-        y, new_state = chunked_linear_attention(q, k, v, a, chunk=ssm.chunk)
+    else:  # row by row (each rank's rows over a mesh)
+        y, new_state = on_local_rows(
+            lambda q, k, v, a: chunked_linear_attention(q, k, v, a, chunk=ssm.chunk), q, k, v, a)
 
     y = y + p.d_skip[None, None, :, None].to(y.dtype) * xh
     y = y.reshape(b, s, d_in)

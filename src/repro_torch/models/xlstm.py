@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.context import mixer_on_local_rows
 from repro_torch.models.common import (
     RMSNorm,
     activation,
@@ -79,7 +80,9 @@ def mlstm_apply(p: Mlstm, cfg, x: torch.Tensor, *, mode: str = "train",
     ``cache["state"]`` (no new cache, as in the reference); decode (S = 1)
     steps from ``cache`` (its conv state the pad).  Prefill and decode
     return the new {"conv", "state"}, written into ``cache`` in place when
-    given."""
+    given.  Over a mesh, each rank's rows (``mixer_on_local_rows``)."""
+    if hasattr(x, "placements"):
+        return mixer_on_local_rows(mlstm_apply, p, cfg, x, mode=mode, cache=cache)
     b, s, d = x.shape
     d_in = 2 * d
     dh = d_in // cfg.n_heads
@@ -155,7 +158,9 @@ def slstm_apply(p: Slstm, cfg, x: torch.Tensor, *, mode: str = "train",
     recurrence is serial, a Python loop over S in float32, from the cached
     {c, n, h, m} in decode and from zeros (n at 1e-6) otherwise.  Prefill
     and decode return the final state, written into ``cache`` in place when
-    given."""
+    given.  Over a mesh, each rank's rows (``mixer_on_local_rows``)."""
+    if hasattr(x, "placements"):
+        return mixer_on_local_rows(slstm_apply, p, cfg, x, mode=mode, cache=cache)
     b, s, d = x.shape
     nh = cfg.n_heads
     dh = d // nh

@@ -114,6 +114,15 @@ def bits(k: torch.Tensor, shape: Sequence[int], *, device=None) -> torch.Tensor:
     return (b1 ^ b2).reshape(tuple(shape))
 
 
+def bits_at(k: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """The elements at flat ``index`` (int64, below 2**32) of any
+    ``bits(k, shape)`` draw, on index's device: a block of a draw without
+    the rest of it (a rank's shard of a sharded tensor's draw)."""
+    k1, k2 = _words(k)
+    b1, b2 = threefry2x32(k1, k2, torch.zeros_like(index), index)
+    return b1 ^ b2
+
+
 def uniform(
     k: torch.Tensor,
     shape: Sequence[int],
@@ -130,6 +139,25 @@ def uniform(
     """
     device = resolve_device(device)
     return _to_uniform(bits(k, shape, device=device), minval, maxval)
+
+
+def uniform_at(k: torch.Tensor, index: torch.Tensor, minval: float = 0.0,
+               maxval: float = 1.0) -> torch.Tensor:
+    """The elements at flat ``index`` of ``uniform(k, shape, minval,
+    maxval)`` for any ``shape`` (see :func:`bits_at`)."""
+    return _to_uniform(bits_at(k, index), minval, maxval)
+
+
+def block_index(shape, block) -> torch.Tensor:
+    """The flat indices (int64, on the CPU) of the block of a row-major
+    ``shape`` given as one ``slice`` a dim."""
+    index = torch.zeros((), dtype=torch.int64)
+    stride = 1
+    for d in reversed(range(len(shape))):
+        coords = torch.arange(shape[d], dtype=torch.int64)[block[d]]
+        index = index + (coords * stride).reshape((-1,) + (1,) * (len(shape) - 1 - d))
+        stride *= shape[d]
+    return index
 
 
 def _to_uniform(b: torch.Tensor, minval: float, maxval: float) -> torch.Tensor:

@@ -12,8 +12,9 @@ ways.  Writes go to a temp dir renamed into place, so a preempted writer
 never corrupts the latest checkpoint; ``keep`` prunes the oldest.
 
 Restore loads the arrays as global values and places them on one device
-(the card unless given one): the single-device case of the reference's
-mesh-agnostic restore.
+(the card unless given one), or, given ``shardings`` built from a new mesh
+(``distributed.sharding``), as ``DTensor``s of that mesh: the reference's
+elastic restore.  A ``DTensor`` leaf is saved as its global value.
 """
 
 from __future__ import annotations
@@ -60,7 +61,10 @@ def _to_numpy(leaf) -> tuple[np.ndarray, str]:
         arrays, dtypes = zip(*(_to_numpy(part) for part in leaf))
         return np.stack(arrays), dtypes[0]
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().cpu()
+        t = leaf.detach()
+        if hasattr(t, "full_tensor"):  # a DTensor: its global value
+            t = t.full_tensor()
+        t = t.cpu()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
         return t.numpy(), str(t.dtype).removeprefix("torch.")
@@ -134,12 +138,18 @@ def _from_numpy(a: np.ndarray, logical: str, like, device):
     return t.to(device=device, dtype=like.dtype)
 
 
-def restore(ckpt_dir: str | Path, step: int, like, *, cfg=None, device=None):
+def restore(ckpt_dir: str | Path, step: int, like, *, cfg=None, device=None,
+            shardings=None):
     """Load checkpoint ``step`` into the structure of ``like`` (a tree of
     tensors, meta tensors welcome, and models), each leaf in its ``like``
-    leaf's type, on ``device`` (``None``: the card; raises without one).  A
-    model in ``like`` comes back as its ``param_tree``: new tensors, the
-    model itself untouched."""
+    leaf's type, on ``device`` (``None``: the card, or with ``shardings``
+    their mesh's device type; raises without one).  A model in ``like``
+    comes back as its ``param_tree``: new tensors, the model itself
+    untouched.  ``shardings`` (a tree of ``like``'s structure, as
+    ``distributed.sharding.param_sharding`` gives it) places each leaf as
+    the ``DTensor`` of its sharding: each rank keeps its own block."""
+    if device is None and shardings is not None:
+        device = leaf_parts(tree_items(shardings)[0][1])[0].mesh.device_type
     device = resolve_device(device)
     path = Path(ckpt_dir) / f"step_{step:08d}"
     manifest = json.loads((path / "manifest.json").read_text())
@@ -151,7 +161,12 @@ def restore(ckpt_dir: str | Path, step: int, like, *, cfg=None, device=None):
     with np.load(path / "arrays.npz") as data:
         out = [_from_numpy(data[f"a{i}"], logical, leaf, device)
                for i, (leaf, logical) in enumerate(zip(leaves, manifest["dtypes"]))]
-    return tree_unflatten(tree, out)
+    restored = tree_unflatten(tree, out)
+    if shardings is not None:
+        from repro_torch.distributed.sharding import distribute_tree
+
+        restored = distribute_tree(restored, shardings)
+    return restored
 
 
 def maybe_remove_old(ckpt_dir: str | Path, keep: int = 3) -> None:

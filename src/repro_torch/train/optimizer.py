@@ -13,10 +13,17 @@ The update is in place: :func:`apply_updates` writes the new master weights,
 moments and step into the state it is handed and the new weights into the
 parameters, and returns both (a model's optimizer state is 14 bytes a
 parameter; a second copy of it would be a step's peak).
+
+The leaves may be ``DTensor``s of one placement each (a sharded train step:
+``launch.steps.make_train_step`` over a ``DeviceMesh``): the grad norm is
+then the global norm, and each shard's stochastic-rounding bits are the
+ones its global elements draw unsharded (``prng.bits_at`` of their flat
+indices), so a sharded bf16 state is the unsharded one's bit for bit.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Optional, Tuple
@@ -66,6 +73,30 @@ def _round_sr(v: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
     rounded = (raw + (bits & 0xFFFF)) & 0xFFFF0000
     signed = torch.where(rounded >= 2**31, rounded - 2**32, rounded).to(torch.int32)
     return signed.view(torch.float32).to(torch.bfloat16)
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t.to_local() if _is_dtensor(t) else t
+
+
+def _round_sr_any(v: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
+    """:func:`_round_sr` of a tensor or, shard by shard, of a ``DTensor``
+    (the rounding is elementwise; ``bits`` is of ``v``'s placements)."""
+    if not _is_dtensor(v):
+        return _round_sr(v, bits)
+    from torch.distributed.tensor import DTensor
+
+    if list(v.placements) != list(bits.placements):
+        v = v.redistribute(bits.device_mesh, bits.placements)
+    return DTensor.from_local(_round_sr(v.to_local(), bits.to_local()), bits.device_mesh,
+                              bits.placements, run_check=False, shape=v.shape,
+                              stride=v.stride())
 
 
 def sr_to_bf16(v: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
@@ -118,6 +149,28 @@ def _leaf_draws(draw, key, leaf) -> list:
     return list(whole.reshape((len(parts),) + tuple(parts[0].shape)))
 
 
+def _leaf_bits(key, leaf) -> list:
+    """``_leaf_draws(prng.bits, key, leaf)``; for ``DTensor`` parts each
+    rank hashes only its own block's flat indices of the stacked draw."""
+    parts = leaf_parts(leaf)
+    if not _is_dtensor(parts[0]):
+        return _leaf_draws(prng.bits, key, leaf)
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed.sharding import local_block
+
+    numel = parts[0].numel()
+    out = []
+    for i, p in enumerate(parts):
+        local_shape, offset = local_block(p.shape, p.device_mesh, p.placements)
+        block = [slice(o, o + n) for o, n in zip(offset, local_shape)]
+        index = (i * numel + prng.block_index(p.shape, block)).to(p.to_local().device)
+        out.append(DTensor.from_local(prng.bits_at(key, index.reshape(local_shape)),
+                                      p.device_mesh, p.placements, run_check=False,
+                                      shape=p.shape, stride=p.stride()))
+    return out
+
+
 def compress_int8(grads, key: torch.Tensor):
     """Per-leaf int8 quantization with stochastic rounding (unbiased), then
     dequantization: a compressed all-reduce payload.  A new tree."""
@@ -154,6 +207,22 @@ def apply_updates(
     its structure.  The state's step, master weights and moments, and the
     parameters (the master cast to their type), are overwritten."""
     tree = _tree(params)
+    sharded = _is_dtensor(leaf_parts(tree_items(tree)[0][1])[0])
+    with _replicating(sharded):
+        return _apply_updates(tree, params, grads, state, cfg, compress_key)
+
+
+def _replicating(on: bool):
+    """``DTensor``'s implicit replication (plain scalars beside sharded
+    leaves) when ``on``."""
+    if not on:
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    return implicit_replication()
+
+
+def _apply_updates(tree, params, grads, state, cfg, compress_key):
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
     grads = tree_map(lambda leaf: map_parts(lambda g: g.to(torch.float32) * scale, leaf), grads)
@@ -161,24 +230,27 @@ def apply_updates(
         grads = compress_int8(grads, compress_key)
 
     step = state["step"] + 1
-    lr = schedule(cfg, step)
+    step_l = _local(step)  # a replicated DTensor step: the scalars stay plain
+    lr = schedule(cfg, step_l)
     b1, b2 = cfg.b1, cfg.b2
-    bc1 = 1 - torch.tensor(b1, dtype=torch.float32, device=step.device) ** step.to(torch.float32)
-    bc2 = 1 - torch.tensor(b2, dtype=torch.float32, device=step.device) ** step.to(torch.float32)
+    bc1 = 1 - torch.tensor(b1, dtype=torch.float32, device=step_l.device) ** step_l.to(
+        torch.float32)
+    bc2 = 1 - torch.tensor(b2, dtype=torch.float32, device=step_l.device) ** step_l.to(
+        torch.float32)
     sr = cfg.state_dtype == "bfloat16"
 
     leaves = [tree_items(t) for t in (state["mu"], state["nu"], grads, state["master"], tree)]
     if not all(len(x) == len(leaves[0]) for x in leaves):
         raise ValueError("params, grads and state are trees of different structure")
     if sr:  # deterministic per-leaf, per-step keys (SR must differ across steps)
-        base = prng.fold_in(prng.key(17), int(step))
+        base = prng.fold_in(prng.key(17), int(step_l))
         keys = prng.split(base, len(leaves[0]))
     with torch.no_grad():
         for i, items in enumerate(zip(*leaves)):
             m_leaf, v_leaf, g_leaf, w_leaf, p_leaf = (leaf for _, leaf in items)
             if sr:
                 k1, k2, k3 = prng.split(keys[i], 3)
-                noise = [iter(_leaf_draws(prng.bits, k, m_leaf)) for k in (k1, k2, k3)]
+                noise = [iter(_leaf_bits(k, m_leaf)) for k in (k1, k2, k3)]
             for m, v, g, master, p in zip(*(leaf_parts(x) for x in
                                             (m_leaf, v_leaf, g_leaf, w_leaf, p_leaf))):
                 m32 = b1 * m.to(torch.float32) + (1 - b1) * g
@@ -189,7 +261,7 @@ def apply_updates(
                 new_master = w32 - lr * (mhat / (torch.sqrt(vhat) + cfg.eps)
                                          + cfg.weight_decay * w32)
                 if sr:
-                    m32, v32, new_master = (_round_sr(x, next(n))
+                    m32, v32, new_master = (_round_sr_any(x, next(n))
                                             for x, n in zip((m32, v32, new_master), noise))
                 m.copy_(m32)
                 v.copy_(v32)

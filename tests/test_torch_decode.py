@@ -33,6 +33,7 @@ from repro.models import xlstm as jxlstm
 from repro_torch.configs import REGISTRY
 from repro_torch.configs.base import get_config
 from repro_torch.interop import carry_across
+from repro_torch.launch import mesh as tmesh
 from repro_torch.launch import steps as tsteps
 from repro_torch.models import common as tcommon
 from repro_torch.models import decode_step, forward, init_cache, init_params, prefill
@@ -217,12 +218,25 @@ def test_step_makers_match_reference(name):
 
 
 def test_step_makers_raise_for_a_mesh():
+    """The inference step makers take a DeviceMesh and raise for anything
+    that is not a mesh."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
     cfg = get_config("tinyllama-1.1b").reduced()
     for make in (tsteps.make_prefill_step, tsteps.make_decode_step):
-        with pytest.raises(NotImplementedError, match="item 2: mesh"):
+        with pytest.raises(TypeError, match="a mesh is None, a HostMesh or a DeviceMesh"):
             make(cfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 2: mesh"):
+    with pytest.raises(TypeError, match="a mesh is None, a HostMesh or a DeviceMesh"):
         tsteps.make_embed_step(cfg, 4, mesh=object())
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=4)
+    try:
+        mesh = tmesh.make_mesh((2, 2), ("data", "model"))
+        for make in (tsteps.make_prefill_step, tsteps.make_decode_step):
+            assert callable(make(cfg, mesh=mesh))
+        assert callable(tsteps.make_embed_step(cfg, 4, mesh=mesh))
+    finally:
+        dist.destroy_process_group()
 
 
 def test_embed_step_matches_embed_sentences():

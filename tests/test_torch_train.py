@@ -456,13 +456,27 @@ def test_ising_solve_step_matches_reference():
 
 
 def test_host_mesh_and_production_mesh():
+    """The host mesh runs as no mesh; make_production_mesh raises under any
+    world size but 256 (naming what it found); make_train_step takes a
+    DeviceMesh and refuses anything else."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
     mesh = tmesh.make_host_mesh("cpu")
     assert mesh.shape == (1, 1) and mesh.axis_names == ("data", "model")
     cfg = get_config("tinyllama-1.1b").reduced()
     tsteps.make_train_step(cfg, opt.OptConfig(), mesh=mesh)
-    with pytest.raises(NotImplementedError, match="item 2: mesh"):
+    with pytest.raises(RuntimeError, match="256 ranks; found no process group"):
         tmesh.make_production_mesh()
-    with pytest.raises(NotImplementedError, match="item 2: mesh"):
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=4)
+    try:
+        with pytest.raises(RuntimeError, match="found a process group of 4 ranks"):
+            tmesh.make_production_mesh()
+        device_mesh = tmesh.make_mesh((2, 2), ("data", "model"))
+        assert callable(tsteps.make_train_step(cfg, opt.OptConfig(), mesh=device_mesh))
+    finally:
+        dist.destroy_process_group()
+    with pytest.raises(TypeError, match="a mesh is None, a HostMesh or a DeviceMesh"):
         tsteps.make_train_step(cfg, opt.OptConfig(), mesh=object())
 
 
