@@ -141,7 +141,8 @@ Phases, each of which must pass or the script exits non-zero:
      full width in float32, one group, prefill 256 and 8 steps, the card
      against the CPU (logits and every cache leaf within 2e-4, pos bit for
      bit, router choices equal; xlstm also over 4 + 4 at its registered
-     init);
+     init, its sLSTM's cache leaves, where beyond 2e-4, held against the CPU
+     with the scan in float64; xlstm's slstm_scan launches counted);
   4i. training (``train_phase``): tinyllama-1.1b at full width and depth
      (bf16, remat, microbatch 2, float32 AdamW state) through ``train()``
      and ``make_train_step`` on B 8 x 2,048 byte tokens for 6 steps, saved
@@ -167,6 +168,23 @@ Phases, each of which must pass or the script exits non-zero:
      against the unsharded step (loss within 1e-3), ms and launches beside
      it; ``python -m repro_torch.launch.dryrun`` for tinyllama-1.1b x
      train_4k and the ising-fleet cell in subprocesses, their records ok;
+  4k. the sLSTM scan (``slstm_phase``, ``csrc/slstm_scan.cu``): at
+     xlstm-1.3b's call (B 2, S 2,048, D 2,048, 4 heads, float32) the
+     forward kernel against ``slstm_scan_plain`` over the first
+     SLSTM_STEPS steps at the registered init and over every step with r
+     at fan-in dh (2e-5), the backward kernel against
+     ``slstm_scan_backward_plain`` at B 2 x S 256 (d_wx, d_r, d_bias within
+     1e-4 of their largest magnitude, two launches equal bit for bit; and
+     at B 40 x S 8, where the fold of the partials takes two rounds), both
+     kernels' ms, plain ms, bounds, microseconds a step and the grid
+     barrier's own cost a step; ``python -m repro_torch.launch.dryrun
+     --arch xlstm-1.3b`` for train_4k and prefill_32k (``--mesh single``),
+     started in subprocesses before phase 3, their ``ok`` records.  The
+     kernels' main-path launches are 4g's xlstm passes (one a layer, and a
+     torch.profiler count of the pass's device kernels), 4h's xlstm decode
+     checks (one a layer for the prefill and for each step) and 4i's xlstm
+     gradient checks (the forward twice under remat, the backward once);
+     "sLSTM phase wall" closes it;
   5. time every kernel, its plain version and its bound (at the padded
      shapes the reference's kernels take, and at the instances' own n spins
      and reads; a COBI anneal row's bound_ms is the latter, since its loop
@@ -182,7 +200,9 @@ Phases, each of which must pass or the script exits non-zero:
      flash kernel at the stage's buckets, beside the FMA kernel called
      directly at bf16 and one SDPA call as its yardstick, with each one's
      achieved TFLOP/s, and at qwen2-moe's and zamba2's calls beside SDPA;
-  6. print the ``kernels`` JSON line, the card line, and last the result
+  6. print the ``kernels`` JSON line (twelve rows: the ten ports of the
+     reference's ``pallas_call`` kernels and the two sLSTM scan kernels,
+     which replace its ``lax.scan``), the card line, and last the result
      line.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.  Without
@@ -875,6 +895,7 @@ def families_phase(dev, reset_counts, counts, expect, launches, enc_docs, key) -
     for name, cut in (("zamba2-2.7b", {}), ("xlstm-1.3b", {}), ("whisper-medium", {}),
                       ("llama-3.2-vision-11b", {}), ("mixtral-8x22b", {"n_layers": 2})):
         cfg = get_config(name).replace(**cut)
+        n_slstm = cfg.n_layers // cfg.group_size if cfg.family == "ssm" else 0
         model = load(cfg)
         frontend = None
         if cfg.n_frontend_tokens:
@@ -893,11 +914,12 @@ def families_phase(dev, reset_counts, counts, expect, launches, enc_docs, key) -
                 walls[impl + (" (cold)" if rep < reps - 1 else "")] = time.perf_counter() - t0
             c = counts()
             want = expect(flash_attention=reps * flash_per_pass(cfg, 2048) if impl == "flash"
-                          else 0)
+                          else 0, slstm_scan=reps * n_slstm)
             if c != want:
                 fail(f"{name} {impl}: launches {c} != {want}")
             if impl == "flash":
                 launches["flash_attention"] += c["flash_attention"]
+            launches["slstm_scan"] += c["slstm_scan"]
             if not bool(torch.isfinite(e).all()):
                 fail(f"{name} {impl}: embeddings not finite")
             out[impl] = torch.cat([e[i, :n] for i, n in enumerate(real)])
@@ -911,6 +933,29 @@ def families_phase(dev, reset_counts, counts, expect, launches, enc_docs, key) -
               f"{gb(torch.cuda.max_memory_allocated())}")
         if cos < 0.999:
             fail(f"{name}: flash vs sdpa min sentence cosine {cos} < 0.999")
+        if n_slstm:
+            # The pass runs each sLSTM layer's recurrence as one kernel
+            # launch (phase 4k); the Python loop it replaced took 3.571-4.193
+            # s a pass at ~250k launches (PERF.md).  One more warm flash pass
+            # under torch.profiler counts its device kernels.
+            reset_counts()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                with torch.no_grad():
+                    embed_sentences(cfg.replace(attn_impl="flash"), model, tokens, segs, n_seg,
+                                    frontend=frontend)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            kernels_a_pass = sum(1 for ev in prof.events()
+                                 if ev.device_type == torch.autograd.DeviceType.CUDA)
+            sl = counts()["slstm_scan"]
+            print(f"families {name} sLSTM: slstm_scan launches a pass {sl} ({n_slstm} sLSTM "
+                  f"layers, one launch each), device kernels a pass {kernels_a_pass} "
+                  f"(torch.profiler), warm flash pass {wall:.3f} s under the profiler, "
+                  f"{walls['flash']:.3f} s without; the replaced Python loop: 3.571-4.193 s "
+                  f"a pass, ~250k launches")
+            if sl != n_slstm:
+                fail(f"{name}: {sl} slstm_scan launches in a pass, want {n_slstm}")
         del model, out, frontend, e
         release()
 
@@ -1031,7 +1076,7 @@ def decode_split(prof, wall: float, n_steps: int, prefix: str = "decode.",
                                 else "not measured (no region spans on the device)")}
 
 
-def decode_phase(dev, reset_counts, counts, expect) -> None:
+def decode_phase(dev, reset_counts, counts, expect, launches) -> None:
     """Phase 4h: prefill and decode through the caches on the card.
 
     (1) tinyllama-1.1b at full width and depth (22 layers, bf16,
@@ -1061,9 +1106,15 @@ def decode_phase(dev, reset_counts, counts, expect) -> None:
     random ids (and the stub frontend), then 8 decode steps, on the card and
     on the CPU from the same weights: logits at every step and every cache
     leaf after the last within 2e-4 (``pos`` bit for bit), the MoE routers'
-    choices equal; xlstm over a prefill of 4 and 4 steps at the registered
-    init (its sLSTM is chaotic at full width) and over the full lengths with
-    r at fan-in dh.
+    choices equal; xlstm over a prefill of SLSTM_STEPS and SLSTM_STEPS
+    steps at the registered init and over the full lengths with r at fan-in
+    dh, its slstm_scan launches on the card counted (one a layer for the
+    prefill and for each step; added to the ``kernels`` line's).  At the
+    registered init the sLSTM is chaotic at full width (PERF.md §7), so
+    there the CPU also runs with the sLSTM's scan in float64 (the op's
+    plain version on float64 copies of its inputs): an sLSTM cache leaf
+    beyond 2e-4 of the float32 CPU must lie within 4x the float32 CPU's own
+    distance from the float64 run, plus 2e-5 of its largest magnitude.
     """
     import copy
     import gc
@@ -1075,6 +1126,8 @@ def decode_phase(dev, reset_counts, counts, expect) -> None:
     from repro_torch.configs.base import get_config
     from repro_torch.data.synthetic import synthetic_document
     from repro_torch.data.tokenizer import ByteTokenizer
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import slstm_scan as kslstm
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models import attention as attn
     from repro_torch.models import decode_step, init_cache, init_params, prefill
@@ -1353,24 +1406,51 @@ def decode_phase(dev, reset_counts, counts, expect) -> None:
         leaves(cache)
         return out, flat, list(seen)
 
-    def card_vs_cpu(cfg, card, host, label, s_pre, steps) -> None:
+    orig_scan = kops.slstm_scan
+
+    def scan_f64(wx, r, bias, state):
+        """The sLSTM's scan in float64 (the op's plain version on the CPU),
+        its outputs rounded back to float32."""
+        hs, c, n, h, m, _, _ = kslstm.slstm_scan_plain(
+            *(t.double() for t in (wx, r, bias, *(state[k] for k in "cnhm"))))
+        return hs.float(), {k: v.float() for k, v in zip("cnhm", (c, n, h, m))}
+
+    def card_vs_cpu(cfg, card, host, label, s_pre, steps, chaotic=False) -> None:
         rng = np.random.default_rng(1)
         tokens = torch.tensor(rng.integers(0, cfg.vocab_size, (2, s_pre + steps)))
         frontend = None
         if cfg.n_frontend_tokens:
             frontend = torch.tensor(rng.standard_normal(
                 (2, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32))
+        n_slstm = cfg.n_layers // cfg.group_size if cfg.family == "ssm" else 0
         mlp_mod._route = spy
         try:
+            reset_counts()
             t0 = time.perf_counter()
             lg_card, c_card, r_card = run(cfg, card, dev, tokens, frontend, s_pre, steps)
             w_card = time.perf_counter() - t0
+            c = counts()
             t0 = time.perf_counter()
             lg_cpu, c_cpu, r_cpu = run(cfg, host, torch.device("cpu"), tokens, frontend,
                                        s_pre, steps)
             w_cpu = time.perf_counter() - t0
+            c_f64 = None
+            if chaotic:
+                kops.slstm_scan = scan_f64
+                try:
+                    c_f64 = dict(run(cfg, host, torch.device("cpu"), tokens, frontend, s_pre,
+                                     steps)[1])
+                finally:
+                    kops.slstm_scan = orig_scan
         finally:
             mlp_mod._route = orig_route
+        if n_slstm:
+            want = expect(slstm_scan=n_slstm * (1 + steps))
+            if c != want:
+                fail(f"decode card vs CPU {label}: launches {c} != {want}")
+            launches["slstm_scan"] += c["slstm_scan"]
+            print(f"decode card vs CPU {label}: slstm_scan launches {c['slstm_scan']} "
+                  f"({n_slstm} sLSTM layers x (prefill + {steps} steps))")
         v = cfg.vocab_size
         err_lg = [float((a[..., :v] - b[..., :v]).abs().max()) for a, b in zip(lg_card, lg_cpu)]
         err_c, bad = 0.0, []
@@ -1385,6 +1465,21 @@ def decode_phase(dev, reset_counts, counts, expect) -> None:
                 err_c = max(err_c, float((a - b).abs().max()))
                 if not torch.allclose(a, b, rtol=2e-4, atol=2e-4):
                     bad.append(k)
+        if c_f64 is not None:
+            # The sLSTM's leaves against the CPU with its scan in float64: the
+            # card's distance, the float32 CPU's, and the bar for a leaf
+            # beyond 2e-4 of the float32 CPU.
+            for k, a in c_card:
+                if ".slstm." not in k:
+                    continue
+                ref = c_f64[k].double()
+                e_card = float((a.double() - ref).abs().max())
+                e_cpu = float((dict(c_cpu)[k].double() - ref).abs().max())
+                bar = 4 * e_cpu + 2e-5 * float(ref.abs().max())
+                print(f"decode card vs CPU {label}: {k} against the float64 scan: card "
+                      f"{e_card:.3e}, float32 CPU {e_cpu:.3e} (bar {bar:.3e} where beyond 2e-4)")
+                if k in bad and e_card <= bar:
+                    bad.remove(k)
         same_idx = len(r_card) == len(r_cpu) and all(
             torch.equal(a, b) for a, b in zip(r_card, r_cpu))
         print(f"decode card vs CPU {label}: logits max abs err prefill {err_lg[0]:.3e}, steps "
@@ -1412,7 +1507,7 @@ def decode_phase(dev, reset_counts, counts, expect) -> None:
                  + (", 1 encoder layer" if base.encoder_layers else ""))
         if cfg.family == "ssm":
             card_vs_cpu(cfg, card, host, label + f", S {SLSTM_STEPS} + {SLSTM_STEPS} steps, B 2)",
-                        SLSTM_STEPS, SLSTM_STEPS)
+                        SLSTM_STEPS, SLSTM_STEPS, chaotic=True)
             dh = cfg.d_model // cfg.n_heads
             for m in (card, host):
                 for group in m.layers:
@@ -1804,6 +1899,7 @@ def train_phase(dev, reset_counts, counts, expect, launches) -> None:
                 (GRAD_BATCH, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32))
         label = (f"{name} (float32, {cfg.n_layers} layers"
                  + (", 1 encoder layer" if base.encoder_layers else ""))
+        reset_counts()
         if cfg.family == "ssm":
             first = {k: (v if k == "frontend" else v[:, :SLSTM_STEPS]) for k, v in batch.items()}
             grad_check(cfg, card, host, first, label + f", S {SLSTM_STEPS}, B {GRAD_BATCH})")
@@ -1814,6 +1910,20 @@ def train_phase(dev, reset_counts, counts, expect, launches) -> None:
                         group.slstm.cell.r.mul_((cfg.n_heads / dh) ** 0.5)
             label += ", sLSTM r at fan-in dh"
         grad_check(cfg, card, host, batch, label + f", S {GRAD_SEQ}, B {GRAD_BATCH})")
+        # The sLSTM's scan (phase 4k) on the card: in each check, the forward
+        # kernel once in the forward and once more in remat's recomputation,
+        # the backward kernel once.
+        c = counts()
+        checks = 2 if cfg.family == "ssm" else 0
+        n_slstm = checks * (cfg.n_layers // cfg.group_size)
+        want = expect(slstm_scan=n_slstm * (2 if cfg.remat else 1), slstm_scan_backward=n_slstm)
+        if c != want:
+            fail(f"train card vs CPU {name}: launches {c} != {want}")
+        for k in ("slstm_scan", "slstm_scan_backward"):
+            launches[k] += c[k]
+        if checks:
+            print(f"train card vs CPU {name}: slstm_scan launches {c['slstm_scan']}, "
+                  f"slstm_scan_backward launches {c['slstm_scan_backward']} (remat {cfg.remat})")
         if name == "tinyllama-1.1b":
             ocfg = opt.OptConfig(warmup_steps=1, peak_lr=1e-3)
             outs = []
@@ -2184,6 +2294,247 @@ def distributed_phase(dev, reset_counts, counts, expect, launches, train) -> Non
     print(f"distributed phase wall: {time.perf_counter() - t_phase:.1f} s")
 
 
+SLSTM_DRY_CELLS = ("train_4k", "prefill_32k")
+
+
+def start_slstm_dry_runs() -> dict:
+    """Phase 4k (e)'s dry runs, started at once in subprocesses on the host's
+    cores (no GPU): ``python -m repro_torch.launch.dryrun --arch xlstm-1.3b
+    --shape <cell> --mesh single`` for each of SLSTM_DRY_CELLS, records in a
+    temporary directory.  Every process is killed at exit if still running."""
+    import atexit
+    import tempfile
+
+    out = Path(tempfile.mkdtemp(prefix="chip_smoke_slstm_"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1")
+    procs = {cell: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "xlstm-1.3b", "--shape",
+         cell, "--mesh", "single", "--out", str(out)], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT) for cell in SLSTM_DRY_CELLS}
+
+    def stop() -> None:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    atexit.register(stop)
+    return {"procs": procs, "out": out, "t0": time.perf_counter(), "stop": stop}
+
+
+def slstm_phase(dev, launches, dry) -> list:
+    """Phase 4k: the sLSTM scan kernels (``csrc/slstm_scan.cu``) at
+    xlstm-1.3b's call, B 2, S 2,048, D 2,048, 4 heads of 512, float32.
+
+    (a) The forward kernel against ``slstm_scan_plain`` on the card, the
+    registered init (``xlstm.Slstm`` from a generator seeded 0 on the card;
+    wx = x @ w_in for x ~ N(0, 1)): hs over the first SLSTM_STEPS steps
+    (the recurrence is chaotic there, PERF.md §7); then r redrawn at fan-in
+    dh (a contractive recurrence): hs, the final c, n, h, m and the saved
+    pre-activations and states over all 2,048 steps, each within 2e-5
+    (rtol = atol).  (b) The backward kernel against
+    ``slstm_scan_backward_plain`` at B 2 x S 256, r at fan-in dh, from the
+    kernel's saved tensors and N(0, 1) gradients of hs and of the final
+    state: d_wx (= d_pre), d_r (the per-head product outside) and d_bias,
+    and the starting c, h, n's gradients, each within 1e-4 of its largest
+    magnitude; the starting stabiliser's (a sum of cancelling terms)
+    against the plain version in float64; a second launch equal bit for
+    bit; the same at B 40 x S 8 (B x units a block past the kernel's 512
+    threads, so its fold of the blocks' partials takes two rounds).  (c)
+    Times at B 2 x S 2,048 (CUDA events): the forward as the main path calls it (nothing
+    saved) and saving for the backward, the backward, one rep of each plain
+    version, the bounds, microseconds a step, and the grid barrier's own
+    cost a step (``slstm_barrier_probe``: S grid syncs on the forward's
+    grid).  (d) is phase 4g's xlstm-1.3b pass line.  (e) The dry runs
+    started by :func:`start_slstm_dry_runs`: exit 0, an ``ok`` record each,
+    printed with their walls.  Returns the two
+    rows of the ``kernels`` line (their launches are filled from the main
+    path's counts of phases 4g, 4h and 4i).
+    """
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import slstm_scan as ks
+    from repro_torch.models.xlstm import Slstm
+
+    t_phase = time.perf_counter()
+    cfg = get_config("xlstm-1.3b")
+    b, s, d, nh = 2, 2048, cfg.d_model, cfg.n_heads
+    dh = d // nh
+    tol_fwd, tol_bwd, s_bwd = 2e-5, 1e-4, 256
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    cell = Slstm(cfg, gen)
+    r = cell.r.to(torch.float32).contiguous()
+    bias = cell.bias.contiguous()
+    x = torch.randn((b, s, d), generator=gen, device=dev, dtype=torch.float32)
+    wx = (x @ cell.w_in.to(torch.float32)).contiguous()
+    zeros = torch.zeros((b, d), device=dev)
+    state = (zeros, zeros + 1e-6, zeros.clone(), zeros.clone())
+    fwd_plan, bwd_plan = ks.plan(b, d, nh), ks.plan(b, d, nh, backward=True)
+    print(f"slstm plan at B {b}, D {d}, NH {nh}: forward {fwd_plan}, backward {bwd_plan}")
+
+    def max_err(a, b_) -> float:
+        return float((a - b_).abs().max())
+
+    # ---------------------------------------------------------------- (a)
+    got = ks.slstm_scan_cuda(wx, r, bias, *state, save=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = ks.slstm_scan_plain(wx, r, bias, *state, save=True)
+    torch.cuda.synchronize()
+    plain_fwd_s = time.perf_counter() - t0
+    held = slice(0, SLSTM_STEPS)
+    err_first = max_err(got[0][:, held], want[0][:, held])
+    by_step = (got[0] - want[0]).abs().amax(dim=(0, 2))
+    print(f"slstm forward vs plain, registered init (r at fan-in {nh}), B {b} S {s}: hs max abs "
+          f"err over steps 0-{SLSTM_STEPS - 1} {err_first:.3e} (bar {tol_fwd}); by step "
+          + " ".join(f"{t}: {float(by_step[t]):.1e}" for t in (0, 4, 8, 16, 64, 256, 2047)))
+    if not torch.allclose(got[0][:, held], want[0][:, held], rtol=tol_fwd, atol=tol_fwd):
+        fail(f"slstm forward vs plain at the registered init: {err_first} > {tol_fwd}")
+    r_dh = (r * (nh / dh) ** 0.5).contiguous()
+    got = ks.slstm_scan_cuda(wx, r_dh, bias, *state, save=True)
+    want = ks.slstm_scan_plain(wx, r_dh, bias, *state, save=True)
+    names = ("hs", "c", "n", "h", "m", "pre", "cnm")
+    errs = {k: max_err(g, w) for k, g, w in zip(names, got, want)}
+    print(f"slstm forward vs plain, r at fan-in {dh}, B {b} S {s}, every step: max abs err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + f" (bar {tol_fwd})")
+    bad = [k for k, g, w in zip(names, got, want)
+           if not torch.allclose(g, w, rtol=tol_fwd, atol=tol_fwd)]
+    if bad:
+        fail(f"slstm forward vs plain with r at fan-in dh: {bad} beyond {tol_fwd}: {errs}")
+    err_fwd = max(err_first, errs["hs"])
+    del got, want
+
+    # ---------------------------------------------------------------- (b)
+    def backward_case(wx_b, bb, ss):
+        """The backward kernel against its plain version at B bb x S ss, r at
+        fan-in dh: the relative errors and d_wx's max abs error."""
+        hs, c, n, h, m, pre, cnm = ks.slstm_scan_cuda(wx_b, r_dh, bias, *state_of(bb), save=True)
+        g = torch.Generator(device=dev)
+        g.manual_seed(1)
+        d_hs = torch.randn((bb, ss, d), generator=g, device=dev)
+        d_fin = [torch.randn((bb, d), generator=g, device=dev) for _ in range(4)]
+        st = state_of(bb)
+        bwd_args = (d_hs, *d_fin, r_dh, pre, cnm, st[0], st[1], st[3])
+        k_out = ks.slstm_scan_backward_cuda(*bwd_args)
+        again = ks.slstm_scan_backward_cuda(*bwd_args)
+        p_out = ks.slstm_scan_backward_plain(*bwd_args)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, a2) for a, a2 in zip(k_out, again)):
+            fail(f"slstm backward at B {bb}: two launches on the same inputs differ")
+
+        def d_r_of(d_pre):
+            h_prev = torch.cat([st[2][:, None], hs[:, :-1]], dim=1).reshape(bb * ss, nh, dh)
+            return torch.matmul(h_prev.permute(1, 2, 0),
+                                d_pre.reshape(bb * ss, nh, 4 * dh).transpose(0, 1))
+
+        pairs = {"d_wx": (k_out[0], p_out[0]), "d_r": (d_r_of(k_out[0]), d_r_of(p_out[0])),
+                 "d_bias": (k_out[0].sum((0, 1)), p_out[0].sum((0, 1)))}
+        pairs.update({f"d_{k}0": (a, w) for k, a, w in zip("cnh", k_out[1:4], p_out[1:4])})
+        rel = {k: max_err(a, w) / max(float(w.abs().max()), 1e-30)
+               for k, (a, w) in pairs.items()}
+        # d_m0, the starting stabiliser's gradient, is a sum of terms that
+        # cancel and is small from the model's starting state (c0 0, n0
+        # 1e-6): float32 rounding is a large share of it in the plain version
+        # too.  So it is held against the plain version in float64 on the
+        # same inputs: no farther than 4x the float32 plain version is, plus
+        # 1e-4 of its size.
+        p64 = ks.slstm_scan_backward_plain(*(t.double() for t in bwd_args))[4]
+        err_k64, err_p64 = max_err(k_out[4].double(), p64), max_err(p_out[4].double(), p64)
+        m_bar = 4 * err_p64 + tol_bwd * float(p64.abs().max())
+        print(f"slstm backward vs plain, r at fan-in {dh}, B {bb} S {ss}: max abs err / max "
+              "magnitude " + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
+              + f" (bar {tol_bwd}); d_m0 (largest {float(p64.abs().max()):.3e}) against the "
+              f"float64 plain: kernel {err_k64:.3e}, float32 plain {err_p64:.3e} (bar "
+              f"{m_bar:.3e}); two launches equal bit for bit")
+        if any(v > tol_bwd for v in rel.values()) or err_k64 > m_bar:
+            fail(f"slstm backward vs plain at B {bb}: {rel} beyond {tol_bwd}, or d_m0 {err_k64} "
+                 f"> {m_bar}")
+        return max_err(*pairs["d_wx"])
+
+    def state_of(bb):
+        z = torch.zeros((bb, d), device=dev)
+        return (z, z + 1e-6, z.clone(), z.clone())
+
+    err_bwd = backward_case(wx[:, :s_bwd].contiguous(), b, s_bwd)
+    # B 40: B x units a block past the kernel's 512 threads, so the fold of
+    # the blocks' partials runs in more than one round.
+    x40 = torch.randn((40, 8, d), generator=gen, device=dev, dtype=torch.float32)
+    err_bwd = max(err_bwd, backward_case((x40 @ cell.w_in.to(torch.float32)).contiguous(), 40, 8))
+    del x40
+    g = torch.Generator(device=dev)
+    g.manual_seed(2)
+    d_fin = [torch.randn((b, d), generator=g, device=dev) for _ in range(4)]
+
+    # ---------------------------------------------------------------- (c)
+    lib = _build.library("slstm_scan")
+    fwd_ms = cuda_ms(lambda: ks.slstm_scan_cuda(wx, r, bias, *state), reps=10)
+    save_ms = cuda_ms(lambda: ks.slstm_scan_cuda(wx, r_dh, bias, *state, save=True), reps=5)
+    hs, c, n, h, m, pre, cnm = ks.slstm_scan_cuda(wx, r_dh, bias, *state, save=True)
+    d_hs = torch.randn((b, s, d), generator=g, device=dev)
+    bwd_args = (d_hs, *d_fin, r_dh, pre, cnm, state[0], state[1], state[3])
+    bwd_ms = cuda_ms(lambda: ks.slstm_scan_backward_cuda(*bwd_args), reps=5)
+    plain_fwd_ms = cuda_ms(lambda: ks.slstm_scan_plain(wx, r, bias, *state), reps=1, warmup=0)
+    plain_bwd_ms = cuda_ms(lambda: ks.slstm_scan_backward_plain(*bwd_args), reps=1, warmup=0)
+    barrier_ms = cuda_ms(lambda: _build.check(lib.slstm_barrier_probe(
+        b, d, nh, s, _build.stream_of(wx)), "slstm_barrier_probe"), reps=5)
+    flops = 2 * b * s * nh * dh * 4 * dh
+    f32 = 4
+    fwd_bytes = f32 * (wx.numel() + r.numel() + bias.numel() + 4 * b * d + b * s * d + 4 * b * d)
+    bwd_bytes = f32 * (d_hs.numel() + 4 * b * d + r.numel() + pre.numel() + cnm.numel()
+                       + 3 * b * d + pre.numel() + 4 * b * d)
+    f_ms, f_by = bound_ms(flops, fwd_bytes)
+    b_ms, b_by = bound_ms(flops, bwd_bytes)
+    print(f"time slstm_scan at B {b} S {s} D {d} NH {nh} float32: kernel {fwd_ms:.4f} ms "
+          f"({fwd_ms * 1e3 / s:.3f} us a step), saving for the backward {save_ms:.4f} ms, plain "
+          f"{plain_fwd_ms:.4f} ms (one rep; {plain_fwd_s:.3f} s in (a)), bound {f_ms:.6f} ms "
+          f"({f_by}, {flops / 1e9:.2f} GFLOP, {fwd_bytes / 1e6:.1f} MB), {flops / fwd_ms / 1e9:.2f} "
+          f"TFLOP/s; grid barrier alone {barrier_ms:.4f} ms for {s} syncs "
+          f"({barrier_ms * 1e3 / s:.3f} us a sync)")
+    print(f"time slstm_scan_backward at B {b} S {s}: kernel {bwd_ms:.4f} ms "
+          f"({bwd_ms * 1e3 / s:.3f} us a step), plain {plain_bwd_ms:.4f} ms (one rep), bound "
+          f"{b_ms:.6f} ms ({b_by}, {flops / 1e9:.2f} GFLOP, {bwd_bytes / 1e6:.1f} MB); saved for "
+          f"it: pre {pre.numel() * f32 / 1e6:.1f} MB + states {cnm.numel() * f32 / 1e6:.1f} MB "
+          f"at B {b} S {s}, {(16 * 4096 * 7 * d) * f32 / 1e9:.2f} GB at B 16 S 4096")
+    del hs, c, n, h, m, pre, cnm, bwd_args, d_hs
+
+    # ---------------------------------------------------------------- (e)
+    try:
+        for cell_name, proc in dry["procs"].items():
+            out, err = proc.communicate(timeout=900)
+            wall = time.perf_counter() - dry["t0"]
+            if proc.returncode != 0:
+                fail(f"slstm dry run {cell_name}: exit {proc.returncode}: {err[-2000:]}")
+            rec = json.loads((dry["out"] / f"xlstm-1.3b__{cell_name}__single.json").read_text())
+            print(f"slstm dry run: {out.strip()}")
+            print(f"slstm dry run record xlstm-1.3b x {cell_name} (done {wall:.1f} s after its "
+                  "start): " + json.dumps(
+                      {k: rec.get(k) for k in ("status", "chips", "seconds", "arg_bytes_per_chip",
+                                               "peak_bytes_per_chip", "flops_per_chip",
+                                               "collectives_per_chip", "fits")}))
+            if rec.get("status") != "ok":
+                fail(f"slstm dry run {cell_name}: {rec.get('status')} {rec.get('error')}")
+    finally:
+        dry["stop"]()
+        import shutil
+        shutil.rmtree(dry["out"], ignore_errors=True)
+    print(f"sLSTM phase wall: {time.perf_counter() - t_phase:.1f} s")
+    row = {"route": "cuda", "source": "src/repro_torch/kernels/csrc/slstm_scan.cu",
+           "replaces": "src/repro/models/xlstm.py:172", "library_ms": None}
+    return [
+        {"name": "slstm_scan", **row, "launches": 0, "max_abs_err": err_fwd, "ms": fwd_ms,
+         "ms_saving": save_ms, "us_a_step": fwd_ms * 1e3 / s,
+         "barrier_us_a_step": barrier_ms * 1e3 / s, "plain_ms": plain_fwd_ms,
+         "bound_ms": f_ms, "bound_by": f_by},
+        {"name": "slstm_scan_backward", **row, "launches": 0, "max_abs_err": err_bwd,
+         "ms": bwd_ms, "us_a_step": bwd_ms * 1e3 / s, "plain_ms": plain_bwd_ms,
+         "bound_ms": b_ms, "bound_by": b_by},
+    ]
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--save-embeddings", metavar="PATH",
@@ -2214,6 +2565,7 @@ def main() -> None:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mcmc_dynamics as md
     from repro_torch.kernels import ref as kref
+    from repro_torch.kernels import slstm_scan as ks
     from repro_torch.farm import CobiFarm, McmcPoolBackend
     from repro_torch.obs import Observability
     from repro_torch.solvers import cobi as cobi_solver
@@ -2235,6 +2587,9 @@ def main() -> None:
     dev = torch.device("cuda")
 
     # ------------------------------------------------------------ 2. build
+    # Phase 4k's dry-run cells start now, on the host's cores, while the
+    # card works through phases 3-4j.
+    slstm_dry = start_slstm_dry_runs()
     t0 = time.perf_counter()
     libs = _build.build_all()
     print(f"build: {time.perf_counter() - t0:.2f} s for {sorted(libs)}")
@@ -2266,6 +2621,8 @@ def main() -> None:
         "mcmc_sweep_batched": md.mcmc_sweep_batched,
         "mcmc_fused_best_batched": md.mcmc_fused_best_batched,
         "flash_attention": fa.flash_attention_cuda,
+        "slstm_scan": ks.slstm_scan_cuda,
+        "slstm_scan_backward": ks.slstm_scan_backward_cuda,
     }
 
     def reset_counts() -> None:
@@ -3351,13 +3708,16 @@ def main() -> None:
     families_phase(dev, reset_counts, counts, expect, launches, enc_docs, key)
 
     # ------------------------------------------------------------ 4h. prefill and decode
-    decode_phase(dev, reset_counts, counts, expect)
+    decode_phase(dev, reset_counts, counts, expect, launches)
 
     # ------------------------------------------------------------ 4i. training
     train = train_phase(dev, reset_counts, counts, expect, launches)
 
     # ------------------------------------------------------------ 4j. distributed
     distributed_phase(dev, reset_counts, counts, expect, launches, train)
+
+    # ------------------------------------------------------------ 4k. the sLSTM scan
+    slstm_rows = slstm_phase(dev, launches, slstm_dry)
 
     # ------------------------------------------------------------ 5. timing
     op, mask, rd = operands(READS, k_solve)
@@ -3637,6 +3997,9 @@ def main() -> None:
               f"bound {b_ms:.6f} ms ({by}, {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
         del q, k, v
 
+    for row in slstm_rows:
+        row["launches"] = launches[row["name"]]
+        rows.append(row)
     if any(row["launches"] == 0 for row in rows):
         fail(f"a kernel of the path never launched: {[r['name'] for r in rows if not r['launches']]}")
 

@@ -32,7 +32,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("ising_energy", "cobi_dynamics", "mcmc_dynamics", "flash_attention")
+SOURCES = ("ising_energy", "cobi_dynamics", "mcmc_dynamics", "flash_attention", "slstm_scan")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -55,6 +55,12 @@ _ARGTYPES = {
     "flash_attention": {
         "flash_attention": [P] * 4 + [I] * 10 + [F, P],
         "flash_attention_wgmma": [P] * 4 + [I] * 9 + [F, P],
+    },
+    "slstm_scan": {
+        "slstm_scan_plan": [I, I, I, I, P],
+        "slstm_scan_forward": [P] * 14 + [I] * 4 + [P],
+        "slstm_scan_backward": [P] * 17 + [I] * 5 + [P],
+        "slstm_barrier_probe": [I, I, I, I, P],
     },
 }
 

@@ -46,6 +46,7 @@ from repro_torch.kernels.mcmc_dynamics import (
     mcmc_fused_best_batched,
     mcmc_sweep_batched,
 )
+from repro_torch.kernels import slstm_scan as _slstm  # registers repro_torch::slstm_scan
 
 SLOT_PAD = 8  # slot axis of the fused readout is padded to this multiple
 ANNEAL_REPLICA_BLOCK = 256  # the reference's replica_block default
@@ -393,3 +394,19 @@ def flash_attention(q, k, v, *, causal=True, window=None):
             "a train step runs attn_impl='auto' (the chunked route); call flash under "
             "torch.no_grad() or on inputs that do not require grad")
     return flash_attention_cuda(q, k, v, causal=causal, window=window)
+
+
+def slstm_scan(wx, r, bias, state):
+    """The sLSTM recurrence of wx (B, S, 4D), the input projection, with
+    recurrent weights r (NH, dh, 4dh) and bias (4D,) from ``state`` {c, n,
+    h, m} (B, D): (hs (B, S, D), the final {c, n, h, m}), all float32.  One
+    call of the custom op ``repro_torch::slstm_scan`` (kernels/slstm_scan.py):
+    one kernel launch on the card, the plain loop on the CPU, shapes only
+    under ``FakeTensorMode``; its autograd rule runs the reverse scan (one
+    launch).  The op keeps what its backward needs only when autograd
+    records it.  Functional: the state is read, never written."""
+    args = [t.to(torch.float32).contiguous() for t in
+            (wx, r, bias, state["c"], state["n"], state["h"], state["m"])]
+    save = torch.is_grad_enabled() and any(t.requires_grad for t in args)
+    hs, c, n, h, m, _, _ = _slstm.slstm_scan(*args, save)
+    return hs, {"c": c, "n": n, "h": h, "m": m}

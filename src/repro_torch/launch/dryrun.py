@@ -58,8 +58,10 @@ from repro_torch.train import optimizer as opt
 
 OUT_DIR = Path(__file__).resolve().parents[3] / "experiments" / "dryrun_torch"
 FLEET = dict(docs=4096, replicas=512, spins=64, steps=1000)
-# Seconds a cell may run before it is recorded as an error: a Python loop
-# over the sequence (xlstm's sLSTM) walks every position on fake tensors.
+# Seconds a cell may run before it is recorded as an error: a guard against
+# any Python loop over the sequence, which would walk every position on fake
+# tensors (xlstm's sLSTM is one op, ``repro_torch::slstm_scan``, with a fake
+# implementation and a flop formula).
 CELL_BUDGET_S = 600
 
 

@@ -2,8 +2,8 @@
 chunk-parallel through the SSD core, one step at a time in decode;
 ``mlstm_init`` is the :class:`Mlstm` module, ``mlstm_apply``,
 ``mlstm_cache_init``) and sLSTM (scalar memory with a hidden-to-hidden
-recurrence, a loop over time; :class:`Slstm`, ``slstm_apply``,
-``slstm_cache_init``).
+recurrence, one scan op over time, ``ops.slstm_scan``; :class:`Slstm`,
+``slstm_apply``, ``slstm_cache_init``).
 
 As in the reference, the mLSTM input gate is a clipped exponential and
 the normalizer rides the same chunked recurrence as an extra value column
@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
 from repro_torch.distributed.context import mixer_on_local_rows
+from repro_torch.kernels import ops
 from repro_torch.models.common import (
     RMSNorm,
     activation,
@@ -155,43 +156,28 @@ class Slstm(torch.nn.Module):
 def slstm_apply(p: Slstm, cfg, x: torch.Tensor, *, mode: str = "train",
                 cache: Optional[dict] = None):
     """sLSTM of x (B, S, D): (out, new_cache).  The hidden-to-hidden
-    recurrence is serial, a Python loop over S in float32, from the cached
-    {c, n, h, m} in decode and from zeros (n at 1e-6) otherwise.  Prefill
-    and decode return the final state, written into ``cache`` in place when
+    recurrence is one call of ``ops.slstm_scan`` (the custom op
+    ``repro_torch::slstm_scan``: one kernel launch on the card, a fake
+    implementation under the dry run), in float32, from the cached {c, n,
+    h, m} in decode and from zeros (n at 1e-6) otherwise.  Prefill and
+    decode return the final state, written into ``cache`` in place when
     given.  Over a mesh, each rank's rows (``mixer_on_local_rows``)."""
     if hasattr(x, "placements"):
         return mixer_on_local_rows(slstm_apply, p, cfg, x, mode=mode, cache=cache)
     b, s, d = x.shape
-    nh = cfg.n_heads
-    dh = d // nh
     wx = (x @ p.w_in).to(torch.float32)  # (B, S, 4D)
-    r = p.r.to(torch.float32)
     if cache is not None and mode == "decode":
-        c, n, h, m = cache["c"], cache["n"], cache["h"], cache["m"]
+        state = cache
     else:
-        c = h = m = torch.zeros((b, d), dtype=torch.float32, device=x.device)
-        n = c + 1e-6
-    hs = []
-    for t in range(s):
-        rec = torch.einsum("bhd,hde->bhe", h.reshape(b, nh, dh), r).reshape(b, 4 * d)
-        pre = wx[:, t] + rec + p.bias
-        z_r, i_r, f_r, o_r = torch.chunk(pre, 4, dim=-1)
-        z = torch.tanh(z_r)
-        log_f = F.logsigmoid(f_r)
-        m_new = torch.maximum(log_f + m, i_r)
-        i_g = torch.exp(i_r - m_new)
-        f_g = torch.exp(log_f + m - m_new)
-        c = f_g * c + i_g * z
-        n = f_g * n + i_g
-        h = torch.sigmoid(o_r) * c / torch.clamp(n, min=1e-6)
-        m = m_new
-        hs.append(h)
-    y = torch.stack(hs, dim=1).to(x.dtype)  # (B, S, D)
+        zeros = torch.zeros((b, d), dtype=torch.float32, device=x.device)
+        state = {"c": zeros, "n": zeros + 1e-6, "h": zeros, "m": zeros}
+    hs, st = ops.slstm_scan(wx, p.r.to(torch.float32), p.bias, state)
+    y = hs.to(x.dtype)  # (B, S, D)
     y = rmsnorm(p.norm.scale, y, eps=cfg.norm_eps)
     y = y + activation("gelu")(y @ p.ffn_in) @ p.ffn_out
     new_cache = None
     if mode in ("decode", "prefill"):
-        new_cache = write_cache(cache, {"c": c, "n": n, "h": h, "m": m})
+        new_cache = write_cache(cache, st)
     return y, new_cache
 
 
