@@ -185,6 +185,21 @@ Phases, each of which must pass or the script exits non-zero:
      checks (one a layer for the prefill and for each step) and 4i's xlstm
      gradient checks (the forward twice under remat, the backward once);
      "sLSTM phase wall" closes it;
+  4l. the router's calibration (``calibration_phase``,
+     ``launch/calibrate.py``): the full cobi-pool fit and the full mcmc fit
+     (Tabu pool) on the card, each with its warm-up seconds, medians,
+     coefficients, each pool's predictions at n 10, 20, 40 and 59 beside
+     the checked-in reference profile's and the checked-in card profile's
+     (``src/repro_torch/serving/profiles/``), every model's knots and its JSON
+     on one line (a finite prediction at every n in 2-59 and the save's
+     round trip, or it fails); the tiny mcmc fit on the card and on the
+     CPU (Tabu and mcmc knots equal, the farm's COBI curves within 0.05);
+     4f's routed run (the reference profile) beside the same requests
+     routed with the card's cobi-pool profile at a deadline derived from
+     its predictions through the engine's own admission and router
+     (``spill_deadline``): ``backend_used`` as predicted with a spill,
+     ``router.stats()``, each backend's ``ewma_latency``, every response
+     equal to the farm's; "calibration phase wall" closes it;
   5. time every kernel, its plain version and its bound (at the padded
      shapes the reference's kernels take, and at the instances' own n spins
      and reads; a COBI anneal row's bound_ms is the latter, since its loop
@@ -568,6 +583,7 @@ def serve_phase(dev, reset_counts, counts, launches, problem, key) -> None:
         routed = eng.run_batch([dataclasses.replace(r, deadline=ROUTE_DEADLINE)
                                 for r in reqs[:-1]], seed=0)
         stats = eng.router.stats()
+        ewma = {name: m.ewma_latency for name, m in eng.router.profile.models.items()}
     wall = time.perf_counter() - t0
     c = counts()
     for name in launches:
@@ -576,7 +592,8 @@ def serve_phase(dev, reset_counts, counts, launches, problem, key) -> None:
     for r in routed:
         used[r.backend_used] = used.get(r.backend_used, 0) + 1
     print(f"serve routed (16 requests, deadline {ROUTE_DEADLINE} s, cobi_pool profile; a check, "
-          f"not a rate): backend_used {used}, router {stats}, wall {wall:.4f} s, launches {c}")
+          f"not a rate): backend_used {used}, router {stats}, ewma_latency {ewma}, wall "
+          f"{wall:.4f} s, launches {c}")
     if not used.get("pool"):
         fail("the routed run spilled nothing onto the pool")
     for r, s in zip(routed, served):
@@ -629,6 +646,7 @@ def serve_phase(dev, reset_counts, counts, launches, problem, key) -> None:
     wall = time.perf_counter() - t0
     print(f"reference_bounds N={big_prob.n} M=6 (Tabu fallback, 32 replicas x 3000 steps, "
           f"twice) on the card: {wall:.3f} s, {bounds} [{card_line()}]")
+    return reqs, served, dict(used=used, stats=stats, ewma=ewma)
 
 
 def flash_per_pass(cfg, s: int) -> int:
@@ -2535,6 +2553,248 @@ def slstm_phase(dev, launches, dry) -> list:
     ]
 
 
+def spill_deadline(eng, reqs):
+    """The routed run's deadline, from the engine's own profile and policy.
+
+    Admission routes a batch before the driver adopts any of it (empty
+    queues, the sim clock where it stands), so its decisions follow from
+    the profile alone.  Deadlines on a grid of 4,000 steps from 0 to the
+    farm's whole predicted queue are replayed, from the top down, through
+    an ``AdmissionController`` with the engine's admission config over a
+    ``BackendRouter`` with the engine's backends, router config and a copy
+    of its profile (fresh ones, so the engine's counters and EWMA stay as
+    they were): the deadline is the middle of the highest run of them at
+    which some request goes to the pool and none is rejected (the farm's
+    queue outgrows it, as it outgrows ``ROUTE_DEADLINE`` under the
+    reference profile).  Returns the deadline and the backend each request
+    is predicted to take, or ``(None, None)`` when no deadline sends work
+    to the pool without a rejection.
+    """
+    from repro_torch.serving.admission import AdmissionController, EngineOverloadedError
+    from repro_torch.serving.calibration import CalibrationProfile
+    from repro_torch.serving.router import BackendRouter
+
+    cfg = eng.cfg
+    sim_now = eng.backend.sim_now()
+    sels = [eng._to_selection(r) for r in reqs]
+    lanes = [eng._estimate_job_lanes(len(sel.items), sel.kofn.m) for sel in sels]
+    router = BackendRouter(eng.router.backends,
+                           CalibrationProfile.from_json(eng.router.profile.to_json()),
+                           eng.router.config)
+
+    def plan(deadline):
+        admission = AdmissionController(eng.admission.config, router=router)
+        out = []
+        for sel, ls in zip(sels, lanes):
+            try:
+                out.append(admission.admit(sel.request_id, ls, cfg.reads, sim_now + deadline,
+                                           sim_now, steps=cfg.steps,
+                                           iterations=cfg.iterations).backend)
+            except EngineOverloadedError:
+                out.append(None)
+        return out
+
+    farm = router.profile.model("farm")
+    top = sum(farm.request_seconds([(n, cfg.reads) for n in ls], cfg.steps) for ls in lanes)
+    def spills(j):
+        p = plan(top * j / grid)
+        return "pool" in p and None not in p
+
+    grid = 4000
+    hi = next((j for j in range(grid - 1, 0, -1) if spills(j)), None)
+    if hi is None:
+        return None, None
+    lo = hi
+    while lo > 1 and spills(lo - 1):
+        lo -= 1
+    deadline = sim_now + top * (hi + lo) / 2 / grid
+    return deadline, plan(deadline - sim_now)
+
+
+def calibration_phase(dev, reset_counts, counts, launches, reqs, served,
+                      routed_ref) -> None:
+    """Phase 4l: the router's calibration on the card (``launch/calibrate.py``).
+
+    (a) The full cobi-pool fit and the full mcmc fit (``--backend mcmc
+    --pool-solver tabu``) through ``launch.calibrate.run`` on the card: the
+    warm-up's seconds, each size's median seconds an invocation (the fit's
+    quadratic passes through the three), the coefficients, each pool's
+    predicted seconds an invocation at n 10, 20, 40 and 59 beside the
+    checked-in reference profile's and the checked-in card profile's
+    (``serving/profiles/``), every model's knots and each profile's
+    JSON on one line; the save's round trip and a finite prediction at
+    every n in 2-59, or the phase fails.  (b) The tiny mcmc fit on the card
+    and on the CPU: the Tabu pool's and the mcmc model's knots equal, and
+    the farm's COBI sweep re-run on both, each instance's normalized curve
+    within 0.05.  (c) Phase 4f's routed run (``routed_ref``: the
+    reference profile at ``ROUTE_DEADLINE``) beside the same 16 requests
+    routed with the card's cobi-pool profile under a deadline derived from
+    its predictions through the engine's own admission and router
+    (``spill_deadline``): for each, ``backend_used``, ``router.stats()`` and
+    each backend's ``ewma_latency`` after the batch (realized against
+    predicted); the card profile's run takes the predicted backends, spills
+    at least once and answers each request as the farm did, bit for bit.
+    """
+    import tempfile
+
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.core import SolveConfig, solve_es
+    from repro_torch.core.metrics import normalized_objective, reference_bounds
+    from repro_torch.data.synthetic import benchmark_suite
+    from repro_torch.launch import calibrate
+    from repro_torch.serving import AdmissionConfig, SummarizationEngine
+    from repro_torch.serving.calibration import CalibrationProfile
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    probe = (10, 20, 40, 59)
+
+    def fit(label, tmp, **kw):
+        out = str(Path(tmp) / f"{label}.json")
+        t0 = time.perf_counter()
+        try:
+            prof = calibrate.run(out=out, **kw)
+        except AssertionError:
+            fail(f"calibration {label}: the saved profile does not reproduce its predictions")
+        return prof, time.perf_counter() - t0
+
+    # ------------------------------------------------------------ (a)
+    profiles = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, ref_file, kw in (
+                ("cobi_pool", "CALIBRATION_cobi_pool.json", dict(pool_solver="cobi")),
+                ("mcmc", "CALIBRATION_mcmc.json", dict(pool_solver="tabu", backend="mcmc"))):
+            reset_counts()
+            prof, wall = fit(label, tmp, device=dev, **kw)
+            c = counts()
+            for name in launches:
+                launches[name] += c[name]
+            profiles[label] = prof
+            ref = CalibrationProfile.load(str(ROOT / "benchmarks" / ref_file))
+            pool, ref_pool = prof.model("pool"), ref.model("pool")
+            reads, steps = pool.reads_ref, pool.steps_ref
+            medians = {n: pool.invocation_seconds(n, reads, steps) for n in prof.meta["sizes"]}
+            print(f"calibration {label} (full fit on the card, pool {pool.solver}): wall "
+                  f"{wall:.3f} s, median s an invocation (the fit through them) "
+                  + ", ".join(f"n {n}: {s:.6f}" for n, s in medians.items())
+                  + f"; lat_coef {list(pool.lat_coef)}; launches {c} [{card}]")
+            print(f"calibration {label} pool s an invocation ({reads} reads, {steps} steps), card "
+                  "against the reference profile: "
+                  + ", ".join(f"n {n}: {pool.invocation_seconds(n, reads, steps):.6f} / "
+                              f"{ref_pool.invocation_seconds(n, ref_pool.reads_ref, ref_pool.steps_ref):.6f}"
+                              for n in probe))
+            kept = CalibrationProfile.load(
+                str(ROOT / "src" / "repro_torch" / "serving" / "profiles"
+                    / f"CALIBRATION_{label}_h100.json")).model("pool")
+            print(f"calibration {label} pool s an invocation, this fit against the checked-in "
+                  f"card profile ({kept.solver}): "
+                  + ", ".join(f"n {n}: {pool.invocation_seconds(n, reads, steps):.6f} / "
+                              f"{kept.invocation_seconds(n, kept.reads_ref, kept.steps_ref):.6f}"
+                              for n in probe))
+            print(f"calibration {label} knots: " + "; ".join(
+                f"{name} {list(zip(m.quality_n, m.quality_p))}" for name, m in prof.models.items()))
+            print(f"calibration {label} profile: {json.dumps(json.loads(prof.to_json()))}")
+            c0, c1, c2 = pool.lat_coef
+            raw = {n: c0 + c1 * n + c2 * n * n for n in range(2, 60)}
+            bad = [n for n, s in raw.items()
+                   if not (math.isfinite(s) and math.isfinite(pool.invocation_seconds(n, reads, steps)))]
+            if bad:
+                fail(f"calibration {label}: the pool's prediction is not finite at n {bad}")
+            neg = [n for n, s in raw.items() if s < 0]
+            print(f"calibration {label}: the quadratic over n 2-59 runs from "
+                  f"{min(raw.values()):.6f} to {max(raw.values()):.6f} s"
+                  + (f"; negative at n {neg} (the model clamps it to 0)" if neg else
+                     ", no negative prediction"))
+
+        # ------------------------------------------------------------ (b)
+        reset_counts()
+        tiny = {}
+        for where in (dev, torch.device("cpu")):
+            tiny[where.type], wall = fit(f"tiny_mcmc_{where.type}", tmp, tiny=True,
+                                         pool_solver="tabu", backend="mcmc", device=where)
+            print(f"calibration tiny mcmc on {where.type}: wall {wall:.3f} s")
+    c = counts()
+    for name in launches:
+        launches[name] += c[name]
+    on_card, on_cpu = tiny[dev.type], tiny["cpu"]
+    for name in ("pool", "mcmc", "farm"):
+        a, b = on_card.model(name), on_cpu.model(name)
+        print(f"calibration tiny {name} knots card / CPU: {list(zip(a.quality_n, a.quality_p))} / "
+              f"{list(zip(b.quality_n, b.quality_p))}")
+        if name != "farm" and (a.quality_n, a.quality_p) != (b.quality_n, b.quality_p):
+            fail(f"calibration tiny: the {name} model's knots differ between the card and the CPU")
+    # The farm's knots come from a COBI sweep, whose phases go through sin/cos:
+    # its curves are held to the full-anneal bar, instance by instance.
+    worst = 0.0
+    kw = calibrate.TINY
+    cfg = SolveConfig(solver="cobi", formulation="improved", iterations=kw["iterations"],
+                      reads=8, steps=kw["steps"], int_range=14, rounding="stochastic")
+    for n in kw["sizes"]:
+        curves = {}
+        for where in (dev, torch.device("cpu")):
+            suite = benchmark_suite(kw["n_benchmarks"], n, max(2, min(6, n // 3)), lam=0.5,
+                                    device=where)
+            curves[where.type] = [
+                normalized_objective(solve_es(p, prng.key(6000 + i), cfg, device=where).curve,
+                                     reference_bounds(p))
+                for i, p in enumerate(suite)]
+        for i, (a, b) in enumerate(zip(curves[dev.type], curves["cpu"])):
+            d = float(np.max(np.abs(a - b)))
+            worst = max(worst, d)
+            if d > 0.05:
+                fail(f"calibration tiny farm: instance {i} at n {n}: the card's normalized "
+                     f"curve {a.tolist()} is {d:.4f} from the CPU's {b.tolist()} (bar 0.05)")
+    print(f"calibration tiny farm (COBI sweep re-run): every instance's normalized curve card "
+          f"against CPU within {worst:.6f} (bar 0.05)")
+
+    # ------------------------------------------------------------ (c)
+    print(f"serve routed, reference cobi_pool profile (4f's run, deadline {ROUTE_DEADLINE} s): "
+          f"backend_used {routed_ref['used']}, router {routed_ref['stats']}, ewma_latency "
+          f"{routed_ref['ewma']}")
+    cfg = SolveConfig(iterations=FARM_ITERATIONS)
+    farm_reqs, farm_served = reqs[:-1], served[:-1]
+    profile = CalibrationProfile.from_json(profiles["cobi_pool"].to_json())  # the engine folds into it
+    reset_counts()
+    t0 = time.perf_counter()
+    with SummarizationEngine(cfg, n_chips=4, seed=0, routing=True, profile=profile,
+                             admission=AdmissionConfig(max_queue_depth=len(FARM_SIZES)),
+                             device=dev) as eng:
+        deadline, plan = spill_deadline(eng, farm_reqs)
+        if deadline is None:
+            fail("the card's profile predicts no deadline at which the farm mix spills "
+                 "onto the pool without a rejection")
+        print(f"serve routed with the card's profile: deadline {deadline} s (sim), "
+              f"derived from its predictions; predicted backends {plan}")
+        routed = eng.run_batch([dataclasses.replace(r, deadline=deadline)
+                                for r in farm_reqs], seed=0)
+        stats = eng.router.stats()
+    wall = time.perf_counter() - t0
+    c = counts()
+    for name in launches:
+        launches[name] += c[name]
+    used: dict = {}
+    for r in routed:
+        used[r.backend_used] = used.get(r.backend_used, 0) + 1
+    ewma = {name: m.ewma_latency for name, m in profile.models.items()}
+    print(f"serve routed, card cobi_pool profile (16 requests, deadline {deadline:.6f} s): "
+          f"backend_used {used}, router {stats}, ewma_latency {ewma}, "
+          f"wall {wall:.4f} s, launches {c}")
+    if [r.backend_used for r in routed] != plan:
+        fail(f"routed with the card's profile: backends {[r.backend_used for r in routed]} "
+             f"!= the predicted {plan}")
+    if not used.get("pool"):
+        fail("the routed run with the card's profile spilled nothing onto the pool")
+    for r, s in zip(routed, farm_served):
+        if not (np.array_equal(r.selection, s.selection) and r.objective == s.objective):
+            fail(f"routed request {r.request_id} (card's profile, via {r.backend_used}) "
+                 f"!= its farm solve")
+    print(f"serve routed, card cobi_pool profile: all 16 responses ({used['pool']} spilled) == "
+          f"the farm's bitwise")
+    print(f"calibration phase wall: {time.perf_counter() - t_phase:.1f} s [{card}]")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--save-embeddings", metavar="PATH",
@@ -3701,7 +3961,7 @@ def main() -> None:
 
     # ------------------------------------------------------------ 4f. the serving engine
     t_phase = time.perf_counter()
-    serve_phase(dev, reset_counts, counts, launches, problem, key)
+    served_batch = serve_phase(dev, reset_counts, counts, launches, problem, key)
     print(f"serve phase wall: {time.perf_counter() - t_phase:.1f} s")
 
     # ------------------------------------------------------------ 4g. the model families
@@ -3718,6 +3978,9 @@ def main() -> None:
 
     # ------------------------------------------------------------ 4k. the sLSTM scan
     slstm_rows = slstm_phase(dev, launches, slstm_dry)
+
+    # ------------------------------------------------------------ 4l. calibration
+    calibration_phase(dev, reset_counts, counts, launches, *served_batch)
 
     # ------------------------------------------------------------ 5. timing
     op, mask, rd = operands(READS, k_solve)

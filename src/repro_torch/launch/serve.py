@@ -18,8 +18,13 @@ reported), the overload posture of a real deployment.  ``--route`` puts the
 cost-model backend router above admission (COBI farm only): farm overload
 spills onto the host pool instead of shedding, with per-backend
 latency/energy/quality predictions from ``--profile`` (a
-``CalibrationProfile`` JSON, e.g. ``benchmarks/CALIBRATION_cobi_pool.json``;
-default: the built-in hardware-constant profile).  Everything runs on
+``CalibrationProfile`` JSON from ``python -m repro_torch.launch.calibrate``:
+the H100's is
+``src/repro_torch/serving/profiles/CALIBRATION_cobi_pool_h100.json``, a
+single run's fit, whose medians moved 20-45% between two runs; its
+``CALIBRATION_mcmc_h100.json`` beside it reads the Tabu pool as free at n 2,
+where its quadratic is negative; default: the built-in hardware-constant
+profile).  Everything runs on
 ``--device`` (default ``cuda``, the card; ``cpu`` runs the kernels' plain
 versions).
 """
@@ -74,8 +79,12 @@ def main():
     ap.add_argument("--route-objective", default="min-energy",
                     choices=["min-energy", "min-latency", "weighted"])
     ap.add_argument("--profile", default=None,
-                    help="CalibrationProfile JSON for --route (default: "
-                         "built-in hardware-constant profile)")
+                    help="CalibrationProfile JSON for --route, e.g. "
+                         "src/repro_torch/serving/profiles/"
+                         "CALIBRATION_cobi_pool_h100.json, the H100's "
+                         "single-run fit (its medians moved 20-45%% between "
+                         "two runs; default: built-in hardware-constant "
+                         "profile)")
     ap.add_argument("--trace-out", default=None, metavar="PATH",
                     help="write a Chrome-trace/Perfetto JSON of the run "
                          "(open in ui.perfetto.dev or chrome://tracing)")

@@ -58,6 +58,9 @@ from repro_torch.serving import router as trt
 ROOT = Path(__file__).resolve().parents[1]
 PROFILES = {name: ROOT / "benchmarks" / f"CALIBRATION_{name}.json"
             for name in ("cobi_pool", "mcmc")}
+# The H100's own fits (python -m repro_torch.launch.calibrate on the card).
+PROFILES.update({f"{name}_h100": ROOT / "src" / "repro_torch" / "serving" / "profiles"
+                 / f"CALIBRATION_{name}_h100.json" for name in ("cobi_pool", "mcmc")})
 JPKG = SimpleNamespace(adm=jadm, cal=jcal, rt=jrt, rec=jrec, faults=jfaults)
 TPKG = SimpleNamespace(adm=tadm, cal=tcal, rt=trt, rec=trec, faults=tfaults)
 
@@ -143,7 +146,7 @@ def _decisions(pkg, profile_json: str) -> list:
     return out
 
 
-@pytest.mark.parametrize("source", ["default", "cobi_pool", "mcmc"])
+@pytest.mark.parametrize("source", ["default", *PROFILES])
 def test_admission_router_recovery_decisions_equal_the_reference(source):
     if source == "default":
         text = jcal.default_profile(n_chips=2, mcmc_workers=2).to_json()
@@ -155,7 +158,7 @@ def test_admission_router_recovery_decisions_equal_the_reference(source):
     assert {"dict", "failed", "rejected"} <= kinds or source != "default"
 
 
-@pytest.mark.parametrize("source", ["default", "cobi_pool", "mcmc"])
+@pytest.mark.parametrize("source", ["default", *PROFILES])
 def test_calibration_predictions_equal_the_reference(source):
     if source == "default":
         jp = jcal.default_profile(n_chips=4, pool_workers=3, mcmc_workers=2)
