@@ -175,11 +175,16 @@ Phases, each of which must pass or the script exits non-zero:
      at fan-in dh (2e-5), the backward kernel against
      ``slstm_scan_backward_plain`` at B 2 x S 256 (d_wx, d_r, d_bias within
      1e-4 of their largest magnitude, two launches equal bit for bit; and
-     at B 40 x S 8, where the fold of the partials takes two rounds), both
-     kernels' ms, plain ms, bounds, microseconds a step and the grid
-     barrier's own cost a step; ``python -m repro_torch.launch.dryrun
-     --arch xlstm-1.3b`` for train_4k and prefill_32k (``--mesh single``),
-     started in subprocesses before phase 3, their ``ok`` records.  The
+     at B 40 x S 8, where a cell thread takes more than one row), both
+     kernels' ms, plain ms, bounds, microseconds a step, each phase of a
+     step (the timed instances: exchange wait, products, reduction,
+     barrier, gates, publish; the backward's cell gradient, publish,
+     exchange wait, products, reduction, barrier), ptxas's registers and
+     spills (a spill fails), and the exchange's own cost a step (the chain
+     floor: S rounds of publish and gather with no arithmetic); ``python
+     -m repro_torch.launch.dryrun --arch xlstm-1.3b`` for train_4k and
+     prefill_32k (``--mesh single``), started in subprocesses before phase
+     3, their ``ok`` records.  The
      kernels' main-path launches are 4g's xlstm passes (one a layer, and a
      torch.profiler count of the pass's device kernels), 4h's xlstm decode
      checks (one a layer for the prefill and for each step) and 4i's xlstm
@@ -231,6 +236,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -2358,13 +2364,19 @@ def slstm_phase(dev, launches, dry) -> list:
     and the starting c, h, n's gradients, each within 1e-4 of its largest
     magnitude; the starting stabiliser's (a sum of cancelling terms)
     against the plain version in float64; a second launch equal bit for
-    bit; the same at B 40 x S 8 (B x units a block past the kernel's 512
-    threads, so its fold of the blocks' partials takes two rounds).  (c)
-    Times at B 2 x S 2,048 (CUDA events): the forward as the main path calls it (nothing
-    saved) and saving for the backward, the backward, one rep of each plain
-    version, the bounds, microseconds a step, and the grid barrier's own
-    cost a step (``slstm_barrier_probe``: S grid syncs on the forward's
-    grid).  (d) is phase 4g's xlstm-1.3b pass line.  (e) The dry runs
+    bit; the same at B 40 x S 8 (B x units a block past the kernel's 256
+    threads, so a cell thread takes more than one row and a step more than
+    one gather).  (c) Times at B 2 x S 2,048 (CUDA events): the forward as
+    the main path calls it (nothing saved) and saving for the backward, the
+    backward, one rep of each plain version, the bounds, microseconds a
+    step; each kernel's timed instance once (``slstm_scan.step_split``: its
+    outputs equal the kernel's bit for bit, each phase's mean ns a step in
+    block 0 and in the block that published last); ptxas's registers and
+    spills for both kernels (from the build's log; a spill in either fails
+    the phase); and the exchange alone (``slstm_scan.exchange_probe``: S
+    rounds of publish and gather on the forward's grid with no arithmetic,
+    the scans' chain floor; the flag scheme beside it).  (d) is phase 4g's
+    xlstm-1.3b pass line.  (e) The dry runs
     started by :func:`start_slstm_dry_runs`: exit 0, an ``ok`` record each,
     printed with their walls.  Returns the two
     rows of the ``kernels`` line (their launches are filled from the main
@@ -2393,6 +2405,27 @@ def slstm_phase(dev, launches, dry) -> list:
     state = (zeros, zeros + 1e-6, zeros.clone(), zeros.clone())
     fwd_plan, bwd_plan = ks.plan(b, d, nh), ks.plan(b, d, nh, backward=True)
     print(f"slstm plan at B {b}, D {d}, NH {nh}: forward {fwd_plan}, backward {bwd_plan}")
+    # ptxas's report (the build keeps it beside the library): registers and
+    # spills of each kernel; r's slice lives in registers, so a spill fails.
+    # The instances' template flags: forward and backward <timed, exact>,
+    # the exchange probe <tagged>.
+    spills, kernel, name = [], None, ""
+    for line in _build._target("slstm_scan").with_suffix(".log").read_text().splitlines():
+        if "Compiling entry" in line:
+            found = re.search(r"slstm_(forward|backward|exchange)_kernelI((?:Lb[01]E)+)", line)
+            kernel = found and found.group(1)
+            if kernel:
+                flags = [f == "1" for f in re.findall(r"Lb([01])E", found.group(2))]
+                kind = (("tagged" if flags[0] else "flags") if kernel == "exchange" else
+                        ("timed, " if flags[0] else "") + ("exact" if flags[1] else "guarded"))
+                name = f"slstm {kernel} kernel ({kind})"
+        elif kernel and ("spill" in line or "registers" in line):
+            print(f"{name} ptxas: {line.strip().removeprefix('ptxas info    : ')}")
+            spilled = re.search(r"(\d+) bytes spill stores", line)
+            if kernel != "exchange" and spilled and int(spilled.group(1)) > 0:
+                spills.append(f"{name}: {line.strip()}")
+    if spills:
+        fail(f"slstm kernels spill registers: {spills}")
 
     def max_err(a, b_) -> float:
         return float((a - b_).abs().max())
@@ -2478,8 +2511,8 @@ def slstm_phase(dev, launches, dry) -> list:
         return (z, z + 1e-6, z.clone(), z.clone())
 
     err_bwd = backward_case(wx[:, :s_bwd].contiguous(), b, s_bwd)
-    # B 40: B x units a block past the kernel's 512 threads, so the fold of
-    # the blocks' partials runs in more than one round.
+    # B 40: B x units a block past the kernel's 256 threads, so a cell
+    # thread takes more than one row and a step more than one gather.
     x40 = torch.randn((40, 8, d), generator=gen, device=dev, dtype=torch.float32)
     err_bwd = max(err_bwd, backward_case((x40 @ cell.w_in.to(torch.float32)).contiguous(), 40, 8))
     del x40
@@ -2488,7 +2521,6 @@ def slstm_phase(dev, launches, dry) -> list:
     d_fin = [torch.randn((b, d), generator=g, device=dev) for _ in range(4)]
 
     # ---------------------------------------------------------------- (c)
-    lib = _build.library("slstm_scan")
     fwd_ms = cuda_ms(lambda: ks.slstm_scan_cuda(wx, r, bias, *state), reps=10)
     save_ms = cuda_ms(lambda: ks.slstm_scan_cuda(wx, r_dh, bias, *state, save=True), reps=5)
     hs, c, n, h, m, pre, cnm = ks.slstm_scan_cuda(wx, r_dh, bias, *state, save=True)
@@ -2497,8 +2529,23 @@ def slstm_phase(dev, launches, dry) -> list:
     bwd_ms = cuda_ms(lambda: ks.slstm_scan_backward_cuda(*bwd_args), reps=5)
     plain_fwd_ms = cuda_ms(lambda: ks.slstm_scan_plain(wx, r, bias, *state), reps=1, warmup=0)
     plain_bwd_ms = cuda_ms(lambda: ks.slstm_scan_backward_plain(*bwd_args), reps=1, warmup=0)
-    barrier_ms = cuda_ms(lambda: _build.check(lib.slstm_barrier_probe(
-        b, d, nh, s, _build.stream_of(wx)), "slstm_barrier_probe"), reps=5)
+    floor_ms = cuda_ms(lambda: ks.exchange_probe(b, d, nh, s), reps=5)
+    flags_ms = cuda_ms(lambda: ks.exchange_probe(b, d, nh, s, tagged=False), reps=3)
+    splits = {}
+    for which, args, kernel in (
+            ("forward", (wx, r_dh, bias, *state, True), ks.slstm_scan_cuda),
+            ("backward", bwd_args, ks.slstm_scan_backward_cuda)):
+        split, timed_out = ks.step_split(which == "backward", *args)
+        plain_out = kernel(*args)
+        if not all(torch.equal(x, y) for x, y in zip(timed_out, plain_out)):
+            fail(f"slstm {which}: the timed instance's outputs differ from the kernel's")
+        if not split["complete"]:
+            fail(f"slstm {which} split: a step's arrival counter is short of the grid")
+        splits[which] = split
+        for who, label in (("block0", "block 0"), ("last", "the block that published last")):
+            print(f"slstm {which} step split at B {b} S {s}, {label}, ns a step (mean of {s}): "
+                  + ", ".join(f"{k} {v:.1f}" for k, v in split[who].items())
+                  + f"; sum {split[who + '_sum']:.1f} (SM clock {split['ghz']:.3f} GHz)")
     flops = 2 * b * s * nh * dh * 4 * dh
     f32 = 4
     fwd_bytes = f32 * (wx.numel() + r.numel() + bias.numel() + 4 * b * d + b * s * d + 4 * b * d)
@@ -2510,8 +2557,8 @@ def slstm_phase(dev, launches, dry) -> list:
           f"({fwd_ms * 1e3 / s:.3f} us a step), saving for the backward {save_ms:.4f} ms, plain "
           f"{plain_fwd_ms:.4f} ms (one rep; {plain_fwd_s:.3f} s in (a)), bound {f_ms:.6f} ms "
           f"({f_by}, {flops / 1e9:.2f} GFLOP, {fwd_bytes / 1e6:.1f} MB), {flops / fwd_ms / 1e9:.2f} "
-          f"TFLOP/s; grid barrier alone {barrier_ms:.4f} ms for {s} syncs "
-          f"({barrier_ms * 1e3 / s:.3f} us a sync)")
+          f"TFLOP/s; the exchange alone (chain floor) {floor_ms:.4f} ms for {s} rounds "
+          f"({floor_ms * 1e3 / s:.3f} us a round; the flag scheme {flags_ms * 1e3 / s:.3f} us)")
     print(f"time slstm_scan_backward at B {b} S {s}: kernel {bwd_ms:.4f} ms "
           f"({bwd_ms * 1e3 / s:.3f} us a step), plain {plain_bwd_ms:.4f} ms (one rep), bound "
           f"{b_ms:.6f} ms ({b_by}, {flops / 1e9:.2f} GFLOP, {bwd_bytes / 1e6:.1f} MB); saved for "
@@ -2544,11 +2591,12 @@ def slstm_phase(dev, launches, dry) -> list:
            "replaces": "src/repro/models/xlstm.py:172", "library_ms": None}
     return [
         {"name": "slstm_scan", **row, "launches": 0, "max_abs_err": err_fwd, "ms": fwd_ms,
-         "ms_saving": save_ms, "us_a_step": fwd_ms * 1e3 / s,
-         "barrier_us_a_step": barrier_ms * 1e3 / s, "plain_ms": plain_fwd_ms,
+         "ms_saving": save_ms, "us_a_step": fwd_ms * 1e3 / s, "chain_floor_ms": floor_ms,
+         "split_ns": splits["forward"]["last"], "plain_ms": plain_fwd_ms,
          "bound_ms": f_ms, "bound_by": f_by},
         {"name": "slstm_scan_backward", **row, "launches": 0, "max_abs_err": err_bwd,
-         "ms": bwd_ms, "us_a_step": bwd_ms * 1e3 / s, "plain_ms": plain_bwd_ms,
+         "ms": bwd_ms, "us_a_step": bwd_ms * 1e3 / s, "chain_floor_ms": floor_ms,
+         "split_ns": splits["backward"]["last"], "plain_ms": plain_bwd_ms,
          "bound_ms": b_ms, "bound_by": b_by},
     ]
 

@@ -58,9 +58,11 @@ _ARGTYPES = {
     },
     "slstm_scan": {
         "slstm_scan_plan": [I, I, I, I, P],
-        "slstm_scan_forward": [P] * 14 + [I] * 4 + [P],
+        "slstm_scan_forward": [P] * 15 + [I] * 5 + [P],
         "slstm_scan_backward": [P] * 17 + [I] * 5 + [P],
-        "slstm_barrier_probe": [I, I, I, I, P],
+        "slstm_forward_split": [P] * 15 + [I] * 5 + [P, P],
+        "slstm_backward_split": [P] * 17 + [I] * 5 + [P, P],
+        "slstm_exchange_probe": [I] * 5 + [P, P],
     },
 }
 

@@ -30,9 +30,16 @@ j reads flat column g D + j, which belongs to head (g D + j) // 4dh.
 What the forward saves for the backward (only when autograd needs it,
 ``save=True``): the pre-activations (B, S, 4D) and c, n, m after every
 step (3, B, S, D), float32.  A CUDA wrapper checks device, type, shape and
-contiguity, allocates its outputs, launches on the current stream and
-raises on a non-zero return code; it never falls back to the loop.  The
-ops dispatch by device: the plain versions serve CPU tensors.
+contiguity, allocates its outputs and the kernel's exchange buffer
+(:func:`exchange_words`; the kernel marks it invalid itself), launches on
+the current stream and raises on a non-zero return code; it never falls
+back to the loop.  The ops dispatch by device: the plain versions serve
+CPU tensors.
+
+:func:`step_split` runs a kernel's timed instance and :func:`read_split`
+turns its buffer into each phase's mean time a step, in block 0 and in the
+block that published last; :func:`exchange_probe` times the exchange
+alone (``chip_smoke.py``, phase 4k).
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from __future__ import annotations
 import ctypes
 from typing import Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 import torch.utils.flop_counter
@@ -47,10 +55,17 @@ import torch.utils.flop_counter
 from repro_torch.kernels import _build
 
 NORM_FLOOR = 1e-6  # h = sigmoid(o) c / max(n, NORM_FLOOR)
-PLAN_FIELDS = ("units", "grid", "batch_tile", "smem", "per_sm", "sms")
+PLAN_FIELDS = ("units", "grid", "lines", "warps", "segments", "registers", "heads", "smem",
+               "exchange_bytes", "per_sm", "sms", "exact")
+SPLIT_PHASES = {
+    "forward": ("exchange wait", "products", "reduction", "barrier", "gates", "publish"),
+    "backward": ("cell gradient", "publish", "exchange wait", "products", "reduction", "barrier"),
+}
+_SPLIT_SLOTS = 8  # phase words a step in a timed buffer (kPhases)
 _PLAN_ERRORS = {
     1: "invalid sizes (B, D and NH at least 1, NH dividing D)",
-    9: "a block's shared memory is over the card's opt-in limit",
+    9: "r's slice is over the registers, or a block's shared memory over the card's opt-in "
+       "limit",
     720: "the grid cannot be co-resident (cooperative launch too large)",
     801: "the device does not support cooperative launches",
 }
@@ -174,9 +189,14 @@ def _check(err: int, what: str, b: int, d: int, nh: int) -> None:
 
 
 def plan(b: int, d: int, nh: int, backward: bool = False, device=None) -> dict:
-    """The kernel's launch plan on ``device`` (default: the current card):
-    units a block, grid, batch tile, shared memory bytes, blocks an SM
-    holds, SMs.  Raises when the grid cannot be launched as one cooperative
+    """The kernel's launch plan on ``device`` (default: the current card),
+    as :data:`PLAN_FIELDS`: units a block, grid, lines of r a block (the
+    forward's 4U columns, the backward's U rows), warps holding them,
+    segments a line, registers of r a thread, heads a block's d pre gather
+    spans, shared memory bytes, exchange buffer bytes, blocks an SM holds,
+    SMs, and 1 when the tiling is exact (every warp's products unguarded:
+    xlstm-1.3b's width at an even B).  Raises when r's slice does not fit
+    the registers or the grid cannot be launched as one cooperative
     grid."""
     out = (ctypes.c_int * len(PLAN_FIELDS))()
     with torch.cuda.device(device):
@@ -187,9 +207,18 @@ def plan(b: int, d: int, nh: int, backward: bool = False, device=None) -> dict:
     return got
 
 
-def slstm_scan_cuda(wx, r, bias, c0, n0, h0, m0, save: bool = False):
-    """The forward scan (see :func:`slstm_scan_plain`) on CUDA tensors: the
-    kernel, one launch."""
+def exchange_words(b: int, d: int, backward: bool = False) -> int:
+    """The 8-byte words of a kernel's exchange buffer: two slots of the
+    step's published values, h (B, D) for the forward, d pre (B, 4D) for the
+    backward."""
+    return 2 * b * d * (4 if backward else 1)
+
+
+def _exchange(b: int, d: int, backward: bool, device) -> torch.Tensor:
+    return torch.empty(exchange_words(b, d, backward), dtype=torch.int64, device=device)
+
+
+def _forward_args(wx, r, bias, c0, n0, h0, m0, save: bool):
     b, s, d, nh, dh = _sizes(wx, r)
     _check_cuda(wx=wx, r=r, bias=bias, c0=c0, n0=n0, h0=h0, m0=m0)
     _check_shapes(bias=(bias, (4 * d,)), c0=(c0, (b, d)), n0=(n0, (b, d)), h0=(h0, (b, d)),
@@ -200,24 +229,30 @@ def slstm_scan_cuda(wx, r, bias, c0, n0, h0, m0, save: bool = False):
     c, n, h, m = (torch.empty((b, d), dtype=torch.float32, device=wx.device) for _ in range(4))
     pre = torch.empty((b, s, 4 * d) if save else (0,), dtype=torch.float32, device=wx.device)
     cnm = torch.empty((3, b, s, d) if save else (0,), dtype=torch.float32, device=wx.device)
-    err = _build.library("slstm_scan").slstm_scan_forward(
-        wx.data_ptr(), r.data_ptr(), bias.data_ptr(), c0.data_ptr(), n0.data_ptr(),
-        h0.data_ptr(), m0.data_ptr(), hs.data_ptr(), c.data_ptr(), n.data_ptr(), h.data_ptr(),
-        m.data_ptr(), pre.data_ptr() if save else None, cnm.data_ptr() if save else None,
-        b, s, d, nh, _build.stream_of(wx))
+    xch = _exchange(b, d, False, wx.device)
+    outs = (hs, c, n, h, m, pre, cnm)
+    ptrs = (wx.data_ptr(), r.data_ptr(), bias.data_ptr(), c0.data_ptr(), n0.data_ptr(),
+            h0.data_ptr(), m0.data_ptr(), hs.data_ptr(), c.data_ptr(), n.data_ptr(),
+            h.data_ptr(), m.data_ptr(), pre.data_ptr() if save else None,
+            cnm.data_ptr() if save else None, xch.data_ptr(), xch.numel(), b, s, d, nh)
+    return outs, ptrs, xch
+
+
+def slstm_scan_cuda(wx, r, bias, c0, n0, h0, m0, save: bool = False):
+    """The forward scan (see :func:`slstm_scan_plain`) on CUDA tensors: the
+    kernel, one launch."""
+    outs, ptrs, _ = _forward_args(wx, r, bias, c0, n0, h0, m0, save)
+    err = _build.library("slstm_scan").slstm_scan_forward(*ptrs, _build.stream_of(wx))
+    b, _, d, nh = ptrs[-4:]
     _check(err, "slstm_scan_forward", b, d, nh)
     _build.count_launch(slstm_scan_cuda)
-    return hs, c, n, h, m, pre, cnm
+    return outs
 
 
 slstm_scan_cuda.launches = 0
 
 
-def slstm_scan_backward_cuda(d_hs, d_c, d_n, d_h, d_m, r, pre, cnm, c0, n0, m0):
-    """The reverse scan (see :func:`slstm_scan_backward_plain`) on CUDA
-    tensors: the kernel, one launch, with a (2, min(D, SMs), B, D) scratch for
-    the blocks' partial products (the kernel's grid is at most min(D, SMs)
-    blocks; the C entry plans the launch)."""
+def _backward_args(d_hs, d_c, d_n, d_h, d_m, r, pre, cnm, c0, n0, m0):
     b, s, d = d_hs.shape
     nh, dh, e = r.shape
     _check_cuda(d_hs=d_hs, d_c=d_c, d_n=d_n, d_h=d_h, d_m=d_m, r=r, pre=pre, cnm=cnm, c0=c0,
@@ -228,22 +263,91 @@ def slstm_scan_backward_cuda(d_hs, d_c, d_n, d_h, d_m, r, pre, cnm, c0, n0, m0):
                                                      n0=n0, m0=m0).items()})
     if s < 1:
         raise ValueError("slstm_scan_backward: the sequence is empty")
-    blocks = min(d, torch.cuda.get_device_properties(d_hs.device).multi_processor_count)
-    part = torch.empty((2, blocks, b, d), dtype=torch.float32, device=d_hs.device)
     d_pre = torch.empty((b, s, 4 * d), dtype=torch.float32, device=d_hs.device)
     d_c0, d_n0, d_h0, d_m0 = (torch.empty((b, d), dtype=torch.float32, device=d_hs.device)
                               for _ in range(4))
-    err = _build.library("slstm_scan").slstm_scan_backward(
-        d_hs.data_ptr(), d_c.data_ptr(), d_n.data_ptr(), d_h.data_ptr(), d_m.data_ptr(),
-        r.data_ptr(), pre.data_ptr(), cnm.data_ptr(), c0.data_ptr(), n0.data_ptr(),
-        m0.data_ptr(), d_pre.data_ptr(), d_c0.data_ptr(), d_n0.data_ptr(), d_h0.data_ptr(),
-        d_m0.data_ptr(), part.data_ptr(), blocks, b, s, d, nh, _build.stream_of(d_hs))
+    xch = _exchange(b, d, True, d_hs.device)
+    outs = (d_pre, d_c0, d_n0, d_h0, d_m0)
+    ptrs = (*(t.data_ptr() for t in (d_hs, d_c, d_n, d_h, d_m, r, pre, cnm, c0, n0, m0)),
+            *(t.data_ptr() for t in outs), xch.data_ptr(), xch.numel(), b, s, d, nh)
+    return outs, ptrs, xch
+
+
+def slstm_scan_backward_cuda(d_hs, d_c, d_n, d_h, d_m, r, pre, cnm, c0, n0, m0):
+    """The reverse scan (see :func:`slstm_scan_backward_plain`) on CUDA
+    tensors: the kernel, one launch, with its exchange buffer of d pre
+    (:func:`exchange_words`)."""
+    outs, ptrs, _ = _backward_args(d_hs, d_c, d_n, d_h, d_m, r, pre, cnm, c0, n0, m0)
+    err = _build.library("slstm_scan").slstm_scan_backward(*ptrs, _build.stream_of(d_hs))
+    b, _, d, nh = ptrs[-4:]
     _check(err, "slstm_scan_backward", b, d, nh)
     _build.count_launch(slstm_scan_backward_cuda)
-    return d_pre, d_c0, d_n0, d_h0, d_m0
+    return outs
 
 
 slstm_scan_backward_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The timed instances and the exchange probe (phase 4k)
+# ---------------------------------------------------------------------------
+
+
+def split_words(s: int, grid: int) -> int:
+    """A timed launch's buffer, in 8-byte words: S arrival counters, grid x S
+    tickets, grid x S x 8 phase cycles, grid x 4 clocks."""
+    return s + grid * s * (1 + _SPLIT_SLOTS) + 4 * grid
+
+
+def read_split(buf, s: int, grid: int, phases) -> dict:
+    """A timed launch's buffer (int64, :func:`split_words` long) as each
+    phase's mean nanoseconds a step, in block 0 (``block0``) and in the
+    block whose arrival ticket was the last of its step (``last``), with
+    their sums, the SM clock (GHz: cycles over the global timer's ns across
+    the loop, block 0's) and ``complete`` (every step's counter reads the
+    grid)."""
+    buf = np.asarray(buf, dtype=np.int64)
+    o = s + grid * s
+    counters = buf[:s]
+    tickets = buf[s:o].reshape(grid, s)
+    cycles = buf[o:o + grid * s * _SPLIT_SLOTS].reshape(grid, s, _SPLIT_SLOTS)[..., :len(phases)]
+    clocks = buf[o + grid * s * _SPLIT_SLOTS:].reshape(grid, 4)
+    ghz = (clocks[:, 2] - clocks[:, 0]) / np.maximum(clocks[:, 3] - clocks[:, 1], 1)
+    last = tickets.argmax(axis=0)
+    ns = cycles / ghz[:, None, None]
+    first = ns[0].mean(axis=0)
+    final = ns[last, np.arange(s)].mean(axis=0)
+    return {"block0": dict(zip(phases, first.tolist())), "last": dict(zip(phases, final.tolist())),
+            "block0_sum": float(first.sum()), "last_sum": float(final.sum()),
+            "ghz": float(ghz[0]), "complete": bool((counters == grid).all())}
+
+
+def step_split(backward: bool, *args) -> Tuple[dict, tuple]:
+    """Runs the timed instance of the forward (``args`` as
+    :func:`slstm_scan_cuda`'s, ``save`` last) or the backward (as
+    :func:`slstm_scan_backward_cuda`'s) once: (:func:`read_split` of its
+    buffer, its outputs).  Not counted as a launch of the main path."""
+    outs, ptrs, xch = (_backward_args if backward else _forward_args)(*args)
+    lib = _build.library("slstm_scan")
+    entry = lib.slstm_backward_split if backward else lib.slstm_forward_split
+    b, s, d, nh = ptrs[-4:]
+    grid = plan(b, d, nh, backward)["grid"]
+    buf = torch.zeros(split_words(s, grid), dtype=torch.int64, device=xch.device)
+    _check(entry(*ptrs, buf.data_ptr(), _build.stream_of(xch)),
+           f"slstm {'backward' if backward else 'forward'} split", b, d, nh)
+    phases = SPLIT_PHASES["backward" if backward else "forward"]
+    return read_split(buf.cpu().numpy(), s, grid, phases), outs
+
+
+def exchange_probe(b: int, d: int, nh: int, s: int, tagged: bool = True, device=None) -> None:
+    """One launch of S rounds of the forward's exchange alone on its grid
+    (no arithmetic): the tagged words the kernels use, or the flag scheme
+    (``tagged=False``).  Time it with CUDA events."""
+    grid = plan(b, d, nh, device=device)["grid"]
+    buf = torch.empty(2 * b * d + grid, dtype=torch.int64,
+                      device=torch.device("cuda") if device is None else device)
+    _build.check(_build.library("slstm_scan").slstm_exchange_probe(
+        int(tagged), b, d, nh, s, buf.data_ptr(), _build.stream_of(buf)), "slstm_exchange_probe")
 
 
 # ---------------------------------------------------------------------------

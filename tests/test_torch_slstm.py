@@ -313,3 +313,90 @@ def test_dryrun_xlstm_train_cell(tmp_path, monkeypatch):
     share = 3 * 2 * 16 * 4096 * cfg.d_model * 4 * dh
     assert rec["flops_per_chip"] - bare["flops_per_chip"] == share
     assert rec["fits"] and rec["seconds"] < dryrun.CELL_BUDGET_S
+
+
+# ---------------------------------------------------------------------------
+# The CUDA wrappers' host side: the exchange buffer, the plan's fields and
+# the timed instances' buffer (the kernels themselves run in chip_smoke.py)
+# ---------------------------------------------------------------------------
+
+SPLIT_S, SPLIT_GRID = 6, 4
+
+
+@pytest.fixture(scope="module")
+def split_buffer():
+    """A timed launch's buffer as the kernel lays it out (S 6, grid 4):
+    every counter full, block 2 the last to publish at every step but step
+    3 (block 1), phase k of block x at step t taking 100 (k + 1) + 10 x + t
+    cycles, and block x's clock at 2 + x / 10 GHz over the loop."""
+    s, grid, slots = SPLIT_S, SPLIT_GRID, 8
+    buf = np.zeros(ks.split_words(s, grid), dtype=np.int64)
+    buf[:s] = grid
+    tickets = buf[s:s + grid * s].reshape(grid, s)
+    tickets[:] = np.array([0, 1, 3, 2])[:, None]
+    tickets[[1, 2], 3] = [3, 2]
+    o = s + grid * s
+    cycles = buf[o:o + grid * s * slots].reshape(grid, s, slots)
+    k, x, t = np.meshgrid(np.arange(slots), np.arange(grid), np.arange(s), indexing="ij")
+    cycles[:] = (100 * (k + 1) + 10 * x + t).transpose(1, 2, 0)
+    clocks = buf[o + grid * s * slots:].reshape(grid, 4)
+    clocks[:, 1], clocks[:, 3] = 1_000, 1_000 + 10_000
+    clocks[:, 0], clocks[:, 2] = 5, 5 + (10_000 * (2 + np.arange(grid) / 10)).astype(np.int64)
+    return buf
+
+
+def test_exchange_words_and_plan_fields():
+    """The wrappers' exchange buffer: two slots of h (B, D) for the forward,
+    of d pre (B, 4D) for the backward; the plan reports the register layout
+    and the exchange's bytes, and no batch tile or partial scratch."""
+    assert ks.exchange_words(2, 2048) == 2 * 2 * 2048
+    assert ks.exchange_words(40, 2048, backward=True) == 2 * 40 * 4 * 2048
+    assert {"registers", "exchange_bytes", "lines", "warps", "segments"} <= set(ks.PLAN_FIELDS)
+    assert "batch_tile" not in ks.PLAN_FIELDS
+    assert ks.split_words(SPLIT_S, SPLIT_GRID) == SPLIT_S * (1 + 9 * SPLIT_GRID) + 4 * SPLIT_GRID
+    assert all(len(p) <= 8 for p in ks.SPLIT_PHASES.values())
+
+
+def test_read_split_block0_and_last(split_buffer):
+    """Each phase's mean ns a step in block 0 and in the block whose ticket
+    was its step's last, cycles over each block's own clock rate."""
+    phases = ks.SPLIT_PHASES["forward"]
+    got = ks.read_split(split_buffer, SPLIT_S, SPLIT_GRID, phases)
+    steps = np.arange(SPLIT_S)
+    last = np.where(steps == 3, 1, 2)
+    for i, name in enumerate(phases):
+        want0 = np.mean(100 * (i + 1) + steps) / 2.0
+        want_last = np.mean((100 * (i + 1) + 10 * last + steps) / (2 + last / 10))
+        assert got["block0"][name] == pytest.approx(want0)
+        assert got["last"][name] == pytest.approx(want_last)
+    assert got["block0_sum"] == pytest.approx(sum(got["block0"].values()))
+    assert got["ghz"] == pytest.approx(2.0) and got["complete"]
+
+
+def test_read_split_flags_a_short_step(split_buffer):
+    """A step whose arrival counter is short of the grid (a block that never
+    published) reads as incomplete."""
+    buf = split_buffer.copy()
+    buf[4] = SPLIT_GRID - 1
+    assert not ks.read_split(buf, SPLIT_S, SPLIT_GRID, ks.SPLIT_PHASES["backward"])["complete"]
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_cuda_wrappers_refuse_cpu_tensors(backward):
+    """The CUDA wrappers (and the timed instances) take CUDA tensors only:
+    CPU tensors raise before any library is built or the exchange buffer
+    allocated."""
+    wx, r, bias, st = (torch.from_numpy(a) if isinstance(a, np.ndarray) else
+                       {k: torch.from_numpy(v) for k, v in a.items()}
+                       for a in _inputs(5, 2, 3, 2, 4, np.float32))
+    state = [st[k] for k in STATE]
+    if backward:
+        hs, c, n, h, m, pre, cnm = ks.slstm_scan_plain(wx, r, bias, *state, save=True)
+        args = (hs, c, n, h, m, r, pre, cnm, state[0], state[1], state[3])
+        calls = (ks.slstm_scan_backward_cuda, lambda *a: ks.step_split(True, *a))
+    else:
+        args = (wx, r, bias, *state)
+        calls = (ks.slstm_scan_cuda, lambda *a: ks.step_split(False, *a, False))
+    for call in calls:
+        with pytest.raises(ValueError, match="contiguous float32 tensors on"):
+            call(*args)
