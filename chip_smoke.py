@@ -10,8 +10,9 @@ Phases, each of which must pass or the script exits non-zero:
      (no reduced-precision reductions);
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
      per source, started together) and print the build seconds; count the
-     HGMMA (wgmma) instructions of the flash library's SASS with cuobjdump
-     (none fails);
+     HGMMA (wgmma) instructions and the HMMA instructions on TF32 operands
+     (the split-TF32 kernel's mma.sync) of the flash library's SASS with
+     cuobjdump (none of either fails);
   3. hold every kernel against its plain PyTorch version on the card, at the
      main path's shapes (8 reads, 128 padded lanes) and at 1024 reads
      (many replica blocks, so the cross-block first-argmin is exercised);
@@ -74,10 +75,11 @@ Phases, each of which must pass or the script exits non-zero:
      2e-5, bf16 within 1.6e-2) and against the naive oracle (2e-3 / 3e-2):
      causal and full, window 64, GQA 2:1 and 4:1, MQA, Sq < Skv, Skv 64,
      Sq > Skv (against the plain version only: rows with no real key), D 16
-     to 128, S 64 to 2048, and the encoder stage's (8, 2048) and (4, 1024)
-     buckets; each case prints the route it took, and a bf16 case at D 64
-     or 128 that took the FMA kernel (or a float32 case that took wgmma)
-     fails;
+     to 128, S 64 to 2048, the encoder stage's (8, 2048) and (4, 1024)
+     buckets, and the stage's and qwen2-moe's 2048 calls in float32; each
+     case prints the route it took, and a bf16 case at D 64 or 128 that did
+     not take wgmma, or any other case that did not take the split-TF32
+     kernel, fails;
   4d. the encoder backbone: sbert-paper at full width (bf16, 12 layers,
      random weights from init_params(seed 0)) in an ``EncoderStage`` with
      ``attn_impl="flash"``, the direct document and the farm mix's nine
@@ -217,13 +219,17 @@ Phases, each of which must pass or the script exits non-zero:
      the MCMC kernels
      at the main path's shape (B = 1, R = 8, 128 lanes, 50 sweeps) through
      their wrappers and from their C entries, and at 1024 reads; the
-     flash kernel at the stage's buckets, beside the FMA kernel called
-     directly at bf16 and one SDPA call as its yardstick, with each one's
-     achieved TFLOP/s, and at qwen2-moe's and zamba2's calls beside SDPA;
-  6. print the ``kernels`` JSON line (twelve rows: the ten ports of the
-     reference's ``pallas_call`` kernels and the two sLSTM scan kernels,
-     which replace its ``lax.scan``), the card line, and last the result
-     line.
+     flash kernel at the stage's buckets (bf16, wgmma) beside one SDPA call
+     as its yardstick, with each one's achieved TFLOP/s, and at qwen2-moe's
+     and zamba2's calls beside SDPA; its float32 route (the split-TF32
+     kernel) at the stage's 2048 bucket and qwen2-moe's call in float32,
+     beside its plain version, SDPA in float32 pinned to
+     EFFICIENT_ATTENTION (its kernels by name and its own error against the
+     plain version), the CUDA-core bound and the split-TF32 bound;
+  6. print the ``kernels`` JSON line (thirteen rows: the ten ports of the
+     reference's ``pallas_call`` kernels, the flash kernel's as two rows,
+     one a route, and the two sLSTM scan kernels, which replace its
+     ``lax.scan``), the card line, and last the result line.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.  Without
 a CUDA device, or without the repository around it, it fails.
@@ -255,6 +261,7 @@ from repro_torch.core.hardware import H100_SXM  # noqa: E402  (no torch import)
 # tensor cores, bf16 on the tensor cores, and HBM3 bandwidth.
 PEAK_F32_FLOPS = H100_SXM.peak_f32_flops
 PEAK_BF16_FLOPS = H100_SXM.peak_bf16_flops
+PEAK_TF32_FLOPS = H100_SXM.peak_tf32_flops
 PEAK_BYTES_PER_S = H100_SXM.hbm_bandwidth
 
 STEPS, READS, ITERATIONS = 400, 8, 10
@@ -498,7 +505,7 @@ def serve_phase(dev, reset_counts, counts, launches, problem, key) -> None:
         drains = eng.farm.stats().drains
     wall = time.perf_counter() - t0
     c = counts()
-    for name in launches:
+    for name in c:
         launches[name] += c[name]
     print(f"serve engine (17 requests, scored): wall {wall:.3f} s, {drains} drains, "
           f"launches {c}")
@@ -540,7 +547,7 @@ def serve_phase(dev, reset_counts, counts, launches, problem, key) -> None:
             batch_walls.append(time.perf_counter() - tb)
         wall = time.perf_counter() - t0
     c = counts()
-    for name in launches:
+    for name in c:
         launches[name] += c[name]
     lat = [r.wall_seconds for batch in window for r in batch]
     rates = [len(reqs) / w for w in batch_walls]
@@ -563,7 +570,7 @@ def serve_phase(dev, reset_counts, counts, launches, problem, key) -> None:
         mserved = eng.run_batch(reqs[:-1], seed=0)
     wall = time.perf_counter() - t0
     c = counts()
-    for name in launches:
+    for name in c:
         launches[name] += c[name]
     print(f"serve engine mcmc (16 requests through {bank}; a check, not a rate): wall "
           f"{wall:.4f} s, launches {c}")
@@ -592,7 +599,7 @@ def serve_phase(dev, reset_counts, counts, launches, problem, key) -> None:
         ewma = {name: m.ewma_latency for name, m in eng.router.profile.models.items()}
     wall = time.perf_counter() - t0
     c = counts()
-    for name in launches:
+    for name in c:
         launches[name] += c[name]
     used: dict = {}
     for r in routed:
@@ -712,6 +719,22 @@ def moe_profile(prof, wall: float, kernel_names) -> dict:
             "split_ms": split if spans else "not measured (no region spans on the device)"}
 
 
+def add_flash_launches(launches: dict, c: dict, route: str) -> int:
+    """Add a run's flash launches (``c``, counted since the last
+    ``reset_counts``, which zeroes the routes' counts too) to the main
+    path's, by route: ``launches["flash_attention"]`` is the wgmma kernel's
+    row, ``launches["flash_attention_tf32"]`` the split-TF32 kernel's.
+    Fails if any launch of the run took another route than ``route``;
+    returns the run's count."""
+    from repro_torch.kernels import flash_attention as fa
+
+    by_route = dict(fa.flash_attention_cuda.route_launches)
+    if sum(by_route.values()) != c["flash_attention"] or by_route[route] != c["flash_attention"]:
+        fail(f"flash launches {c['flash_attention']} by route {by_route}: not all on {route}")
+    launches["flash_attention" if route == "wgmma" else "flash_attention_tf32"] += by_route[route]
+    return by_route[route]
+
+
 def families_phase(dev, reset_counts, counts, expect, launches, enc_docs, key) -> None:
     """Phase 4g: the other model families on the card.
 
@@ -738,8 +761,9 @@ def families_phase(dev, reset_counts, counts, expect, launches, enc_docs, key) -
     before the next loads.  (3) The card against the CPU at full width:
     each of the six in float32, ``n_layers`` cut to one group (whisper's
     ``encoder_layers`` to 1 too), S 256, B 2, the same weights on the card
-    (flash on its FMA route, TF32 off) and on the CPU (plain versions):
-    embeddings within 2e-4 and the MoE routers' choices equal.
+    (flash on its split-TF32 route, TF32 off in PyTorch's products; the
+    card's flash launches counted, by route) and on the CPU (plain
+    versions): embeddings within 2e-4 and the MoE routers' choices equal.
     """
     import copy
     import gc
@@ -804,7 +828,7 @@ def families_phase(dev, reset_counts, counts, expect, launches, enc_docs, key) -
         if c != want:
             fail(f"qwen2-moe {impl}: launches {c} != {want} ({st.launches} stage launches)")
         if impl == "flash":
-            launches["flash_attention"] += c["flash_attention"]
+            add_flash_launches(launches, c, "wgmma")
         for (name, d, _), e in zip(enc_docs, embs):
             if e.shape != (len(d), cfg.d_model) or not bool(torch.isfinite(e).all()):
                 fail(f"qwen2-moe {impl} {name}: embeddings {tuple(e.shape)} not finite / not "
@@ -942,7 +966,7 @@ def families_phase(dev, reset_counts, counts, expect, launches, enc_docs, key) -
             if c != want:
                 fail(f"{name} {impl}: launches {c} != {want}")
             if impl == "flash":
-                launches["flash_attention"] += c["flash_attention"]
+                add_flash_launches(launches, c, "wgmma")
             launches["slstm_scan"] += c["slstm_scan"]
             if not bool(torch.isfinite(e).all()):
                 fail(f"{name} {impl}: embeddings not finite")
@@ -1005,11 +1029,14 @@ def families_phase(dev, reset_counts, counts, expect, launches, enc_docs, key) -
         try:
             for where, m, d in (("card", card, dev), ("cpu", host, torch.device("cpu"))):
                 seen.clear()
+                reset_counts()
                 t0 = time.perf_counter()
                 with torch.no_grad():
                     h, _, _ = forward(cfg, m, tokens.to(d), return_hidden=True,
                                       frontend=None if frontend is None else frontend.to(d))
                 got[where] = (h.cpu(), list(seen), time.perf_counter() - t0)
+                if where == "card":  # the float32 flash calls: the split-TF32 kernel's
+                    flash = add_flash_launches(launches, counts(), "tf32")
         finally:
             mlp_mod._route = originals["_route"]
         (h_card, idx_card, w_card), (h_cpu, idx_cpu, w_cpu) = got["card"], got["cpu"]
@@ -1022,7 +1049,7 @@ def families_phase(dev, reset_counts, counts, expect, launches, enc_docs, key) -
                  + " ".join(f"{t}: {float(err_t[t]):.1e}" for t in (0, 4, 8, 16, 64, 255))
                  if steps else "")
               + (f", router choices equal: {same_idx}" if cfg.moe else "")
-              + f"; card {w_card:.2f} s, CPU {w_cpu:.2f} s")
+              + f", flash launches {flash}; card {w_card:.2f} s, CPU {w_cpu:.2f} s")
         if not torch.allclose(h_card[:, held], h_cpu[:, held], rtol=2e-4, atol=2e-4):
             fail(f"families card vs CPU {label}: max abs err {float(err_t[held].max())} > 2e-4")
         if cfg.moe and not same_idx:
@@ -2717,7 +2744,7 @@ def calibration_phase(dev, reset_counts, counts, launches, reqs, served,
             reset_counts()
             prof, wall = fit(label, tmp, device=dev, **kw)
             c = counts()
-            for name in launches:
+            for name in c:
                 launches[name] += c[name]
             profiles[label] = prof
             ref = CalibrationProfile.load(str(ROOT / "benchmarks" / ref_file))
@@ -2764,7 +2791,7 @@ def calibration_phase(dev, reset_counts, counts, launches, reqs, served,
                                          pool_solver="tabu", backend="mcmc", device=where)
             print(f"calibration tiny mcmc on {where.type}: wall {wall:.3f} s")
     c = counts()
-    for name in launches:
+    for name in c:
         launches[name] += c[name]
     on_card, on_cpu = tiny[dev.type], tiny["cpu"]
     for name in ("pool", "mcmc", "farm"):
@@ -2820,7 +2847,7 @@ def calibration_phase(dev, reset_counts, counts, launches, reqs, served,
         stats = eng.router.stats()
     wall = time.perf_counter() - t0
     c = counts()
-    for name in launches:
+    for name in c:
         launches[name] += c[name]
     used: dict = {}
     for r in routed:
@@ -2912,9 +2939,14 @@ def main() -> None:
         sass = subprocess.run([str(cuobjdump), "--dump-sass", str(libs["flash_attention"])],
                               capture_output=True, text=True, timeout=300, check=True).stdout
         hgmma = sum("HGMMA" in line for line in sass.splitlines())
-        print(f"flash_attention SASS: {hgmma} HGMMA instructions (cuobjdump --dump-sass)")
+        hmma_tf32 = sum("HMMA" in line and "TF32" in line for line in sass.splitlines())
+        print(f"flash_attention SASS: {hgmma} HGMMA instructions, {hmma_tf32} HMMA instructions "
+              f"on TF32 operands (cuobjdump --dump-sass)")
         if hgmma == 0:
             fail("the flash library has no HGMMA instruction: the wgmma kernel did not compile to it")
+        if hmma_tf32 == 0:
+            fail("the flash library has no HMMA instruction on TF32 operands: the split-TF32 "
+                 "kernel's products did not compile to the tensor cores")
     else:
         print(f"flash_attention SASS: not measured ({cuobjdump} not found)")
 
@@ -2936,6 +2968,8 @@ def main() -> None:
     def reset_counts() -> None:
         for w in counted.values():
             w.launches = 0
+        for route in fa.flash_attention_cuda.route_launches:
+            fa.flash_attention_cuda.route_launches[route] = 0
 
     def counts() -> dict:
         return {name: w.launches for name, w in counted.items()}
@@ -3429,9 +3463,15 @@ def main() -> None:
                  (2, 2048, 2048, 32, 8, 128, bf16, True, None),  # llama-3.2-vision: 32 / 8
                  (8, 2048, 2048, 16, 16, 128, bf16, True, None),  # qwen2-moe: the 2048 bucket
                  (2, 2048, 2048, 16, 16, 64, bf16, True, None),  # whisper's decoder, D 64
-                 (2, 1024, 1024, 16, 16, 64, bf16, False, None)]  # non-causal, D 64
-    errs["flash_attention"] = 0.0
-    routes = {"fma": 0, "wgmma": 0}
+                 (2, 1024, 1024, 16, 16, 64, bf16, False, None),  # non-causal, D 64
+                 # The float32 route at phase 5's shapes: the stage's 2048
+                 # bucket and qwen2-moe's call.
+                 (8, 2048, 2048, 12, 12, 64, f32, True, None),
+                 (8, 2048, 2048, 16, 16, 128, f32, True, None)]
+    routes = {"tf32": 0, "wgmma": 0}
+    route_rows = {"tf32": "flash_attention_tf32", "wgmma": "flash_attention"}
+    for row in route_rows.values():
+        errs[row] = 0.0
     for b, sq, skv, h, kv, d, dt, causal, window in fa_cases:
         q, k, v = attn_inputs(b, sq, skv, h, kv, d, dt)
         before = dict(fa.flash_attention_cuda.route_launches)
@@ -3441,7 +3481,7 @@ def main() -> None:
         tol, ref_tol = (2e-5, 2e-3) if dt == f32 else (1.6e-2, 3e-2)
         label = (f"B={b} Sq={sq} Skv={skv} H={h} KV={kv} D={d} {str(dt)[6:]} causal={causal} "
                  f"window={window}")
-        wanted_route = "wgmma" if dt == bf16 and d > 32 else "fma"
+        wanted_route = "wgmma" if dt == bf16 and d > 32 else "tf32"
         if took != [wanted_route]:
             fail(f"flash_attention ({label}) took route {took}, not {wanted_route}")
         routes[wanted_route] += 1
@@ -3458,14 +3498,16 @@ def main() -> None:
                      f"{float(ref_err.max())}")
             ref_note = f", vs ref {float(ref_err.max()):.3e}"
         print(f"  flash {label}: route {took[0]}, max err vs plain {float(err.max()):.3e}{ref_note}")
-        errs["flash_attention"] = max(errs["flash_attention"], float(err.max()))
+        row = route_rows[wanted_route]
+        errs[row] = max(errs[row], float(err.max()))
         del q, k, v, got, want
     torch.cuda.synchronize()
     print(f"flash_attention vs plain: ok in {len(fa_cases)} cases ({routes['wgmma']} through "
-          f"wgmma, {routes['fma']} through the FMA kernel; f32 / bf16, causal / full, window 64, "
-          f"GQA 2:1, 4:1 and 6:1, MQA, Sq < Skv, Skv 64, Sq > Skv, D 16-128, S 64-2048, the "
-          f"stage's (8, 2048) and (4, 1024) buckets, the model families' calls); max err "
-          f"{errs['flash_attention']:.3e}")
+          f"wgmma, {routes['tf32']} through the split-TF32 kernel; f32 / bf16, causal / full, "
+          f"window 64, GQA 2:1, 4:1 and 6:1, MQA, Sq < Skv, Skv 64, Sq > Skv, D 16-128, S "
+          f"64-2048, the stage's (8, 2048) and (4, 1024) buckets, the model families' calls); "
+          f"max err {errs['flash_attention']:.3e} (wgmma), {errs['flash_attention_tf32']:.3e} "
+          f"(split-TF32)")
 
     # ------------------------------------------------------------ 4. main path
     cfg = SolveConfig(solver="cobi", iterations=ITERATIONS, reads=READS, steps=STEPS)
@@ -3532,6 +3574,7 @@ def main() -> None:
         fail(f"reduce paths launches {reduced} != {want}")
     for name in counted:
         launches[name] = direct[name] + decomposed[name] + reduced[name]
+    launches["flash_attention_tf32"] = 0  # "flash_attention" counts the wgmma route's
 
     # ------------------------------------------------------------ 4b. the chip farm
     n_docs = len(farm_docs)
@@ -3807,7 +3850,7 @@ def main() -> None:
         if c != want:
             fail(f"encoder {impl}: launches {c} != {want} ({st.launches} stage launches)")
         if impl == "flash":
-            launches["flash_attention"] += c["flash_attention"]
+            add_flash_launches(launches, c, "wgmma")
         for (name, d, _), e in zip(enc_docs, embs):
             if e.shape != (len(d), enc_cfg.d_model) or not bool(torch.isfinite(e).all()):
                 fail(f"encoder {impl} {name}: embeddings {tuple(e.shape)} not finite / not "
@@ -3866,7 +3909,7 @@ def main() -> None:
     c = counts()
     if c != expect(flash_attention=enc_cfg.n_layers):
         fail(f"BackboneEncoder launches {c} != {enc_cfg.n_layers} flash")
-    launches["flash_attention"] += c["flash_attention"]
+    add_flash_launches(launches, c, "wgmma")
     cos = float(torch.nn.functional.cosine_similarity(benc, flash_embs[0], dim=-1).min())
     print(f"encoder BackboneEncoder: direct document at batch 1, max abs diff "
           f"{float((benc - flash_embs[0]).abs().max()):.3e} from the stage's row, min sentence "
@@ -4241,24 +4284,20 @@ def main() -> None:
     # Flash attention at the stage's buckets (bf16, causal, 12 heads of 64):
     # the kernel (the wgmma route) through its wrapper and from its C entry
     # (back-to-back wrapper calls at the 1024 bucket outrun the host's
-    # checks and tensor-map set-up), the FMA kernel called directly at bf16
-    # (no public switch reaches it there), its plain version, and one
-    # PyTorch call of the same function as a yardstick (the port never
-    # calls it).  The bound counts 4 B H D flops per unmasked (q, k) pair,
-    # S (S + 1) / 2 pairs, on the bf16 tensor cores, and q, k, v, o once each;
-    # the buckets have no padded lanes, so padded and unpadded bounds agree.
+    # checks and tensor-map set-up), its plain version, and one PyTorch call
+    # of the same function as a yardstick (the port never calls it).  The
+    # bound counts 4 B H D flops per unmasked (q, k) pair, S (S + 1) / 2
+    # pairs, on the bf16 tensor cores, and q, k, v, o once each; the buckets
+    # have no padded lanes, so padded and unpadded bounds agree.
     sdpa = torch.nn.functional.scaled_dot_product_attention
     fa_lib = _build.library("flash_attention")
     for b, s_len in ((8, 2048), (4, 1024)):
         q, k, v = attn_inputs(b, s_len, s_len, 12, 12, 64, bf16)
-        o_fma = torch.empty_like(q)
+        o_entry = torch.empty_like(q)
         ms = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v), reps=20)
         entry_ms = cuda_ms(lambda: _build.check(fa_lib.flash_attention_wgmma(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o_fma.data_ptr(), b, s_len, s_len, 12, 12,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o_entry.data_ptr(), b, s_len, s_len, 12, 12,
             64, 1, 0, 0, 64**-0.5, _build.stream_of(q)), "flash_attention (wgmma)"), reps=50)
-        fma_ms = cuda_ms(lambda: _build.check(fa_lib.flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o_fma.data_ptr(), b, s_len, s_len, 12, 12,
-            64, 1, 1, 0, 0, 64**-0.5, _build.stream_of(q)), "flash_attention (fma)"), reps=5)
         plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v), reps=5, warmup=1)
         lib_ms = cuda_ms(lambda: sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                                       is_causal=True), reps=50)
@@ -4272,16 +4311,15 @@ def main() -> None:
                 "replaces": "src/repro/kernels/flash_attention.py:75",
                 "launches": launches["flash_attention"],
                 "max_abs_err": errs["flash_attention"], "ms": ms, "plain_ms": plain_ms,
-                "library_ms": lib_ms, "ms_fma": fma_ms,
+                "library_ms": lib_ms,
                 **bounds("flash_attention", (b_ms, by), (b_ms, by)),
             })
         print(f"time flash_attention at B={b} S={s_len} H=12 D=64 bf16 causal: kernel (wgmma) "
               f"{ms:.4f} ms through the wrapper ({flops / ms / 1e9:.1f} TFLOP/s), {entry_ms:.4f} ms "
-              f"from its C entry ({flops / entry_ms / 1e9:.1f} TFLOP/s), FMA kernel {fma_ms:.4f} ms "
-              f"({flops / fma_ms / 1e9:.1f} TFLOP/s, {fma_ms / ms:.2f}x the wgmma kernel), plain "
+              f"from its C entry ({flops / entry_ms / 1e9:.1f} TFLOP/s), plain "
               f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms ({flops / lib_ms / 1e9:.1f} TFLOP/s), "
               f"bound {b_ms:.6f} ms ({by}, {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
-        del q, k, v, o_fma
+        del q, k, v, o_entry
     # The model families' flash calls (phase 4g): qwen2-moe's stage pass at
     # the 2048 bucket (B 8, 16 heads of 128, qkv bias outside the kernel)
     # and zamba2's shared block (B 2, 32 heads of 80, padded to 128 inside
@@ -4307,6 +4345,72 @@ def main() -> None:
               f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms ({flops / lib_ms / 1e9:.1f} TFLOP/s), "
               f"bound {b_ms:.6f} ms ({by}, {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
         del q, k, v
+
+    # The float32 route (the split-TF32 kernel) at the stage's 2048 bucket
+    # and qwen2-moe's call, float32, causal: through the wrapper and from
+    # its C entry (its error against the plain version from the entry's
+    # output), the plain version, and SDPA in float32 with its backend
+    # pinned to EFFICIENT_ATTENTION (its device kernels by name and its own
+    # max error against the plain version, so the reader sees whether it is
+    # a like-for-like float32 call; the port never calls it).  Bounds: the
+    # FLOP at the CUDA cores' float32 rate, and three split-TF32 passes of
+    # them at the tensor cores' TF32 rate, the least time for float32-grade
+    # products on this card (bound_ms); q, k, v, o once each either way.
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    tf32_row = None
+    for label, (b, s_len, h, d) in (("stage", (8, 2048, 12, 64)),
+                                    ("qwen2-moe-a2.7b", (8, 2048, 16, 128))):
+        q, k, v = attn_inputs(b, s_len, s_len, h, h, d, f32)
+        o_entry = torch.empty_like(q)
+        ms = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v), reps=20)
+        entry_ms = cuda_ms(lambda: _build.check(fa_lib.flash_attention_tf32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o_entry.data_ptr(), b, s_len, s_len, h, h,
+            d, 0, 1, 0, 0, d**-0.5, _build.stream_of(q)), "flash_attention (tf32)"), reps=20)
+        want = fa.flash_attention_plain(q, k, v)
+        entry_err = float((o_entry - want).abs().max())
+        plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v), reps=3, warmup=1)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            sdpa_err = float((sdpa(qt, kt, vt, is_causal=True).transpose(1, 2) - want).abs().max())
+            lib_ms = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True), reps=20)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    sdpa(qt, kt, vt, is_causal=True)
+                torch.cuda.synchronize()
+        # The profiler has returned no kernel for this call in some runs.
+        sdpa_kernels = sorted(ev.key for ev in prof.key_averages()
+                              if ev.device_type == torch.autograd.DeviceType.CUDA
+                              and ev.self_device_time_total > 0) or ["not recorded by the profiler"]
+        flops = 4 * b * h * d * (s_len * (s_len + 1) // 2)
+        nbytes = 4 * q.numel() * q.element_size()
+        core_ms, _ = bound_ms(flops, nbytes, PEAK_F32_FLOPS)
+        split_ms, split_by = bound_ms(3 * flops, nbytes, PEAK_TF32_FLOPS)
+        at = {"at": f"{label} B={b} S={s_len} H={h} D={d} float32 causal", "ms": ms,
+              "ms_entry": entry_ms, "max_abs_err_entry": entry_err, "plain_ms": plain_ms,
+              "library_ms": lib_ms, "sdpa_backend": "EFFICIENT_ATTENTION",
+              "sdpa_kernels": sdpa_kernels, "sdpa_max_abs_err": sdpa_err,
+              "bound_ms": split_ms, "bound_by": split_by, "bound_cuda_core_ms": core_ms,
+              "bound_split_tf32_ms": split_ms,
+              "bound_bytes_ms": nbytes / PEAK_BYTES_PER_S * 1e3}
+        if tf32_row is None:
+            tf32_row = {"name": "flash_attention_tf32", "route": "cuda",
+                        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "replaces": "src/repro/kernels/flash_attention.py:75",
+                        "launches": launches["flash_attention_tf32"],
+                        "max_abs_err": errs["flash_attention_tf32"], **at, "shapes": []}
+            rows.append(tf32_row)
+        else:
+            tf32_row["shapes"].append(at)
+        print(f"time flash_attention_tf32 at {at['at']}: kernel {ms:.4f} ms through the wrapper "
+              f"({flops / ms / 1e9:.1f} TFLOP/s), {entry_ms:.4f} ms from its C entry "
+              f"({flops / entry_ms / 1e9:.1f} TFLOP/s; max err vs plain {entry_err:.3e}), plain "
+              f"{plain_ms:.4f} ms, sdpa in float32 (EFFICIENT_ATTENTION: "
+              f"{', '.join(sdpa_kernels)}) {lib_ms:.4f} ms ({flops / lib_ms / 1e9:.1f} TFLOP/s; "
+              f"its max err vs plain {sdpa_err:.3e}), bounds {split_ms:.6f} ms ({split_by}, three "
+              f"split-TF32 passes), {core_ms:.6f} ms (CUDA-core float32) ({flops / 1e9:.2f} GFLOP, "
+              f"{nbytes / 1e6:.1f} MB)")
+        del q, k, v, o_entry, want, qt, kt, vt
 
     for row in slstm_rows:
         row["launches"] = launches[row["name"]]

@@ -77,6 +77,7 @@ class GpuChip:
     name: str
     power_limit_w: float
     peak_bf16_flops: float  # FLOP/s on the tensor cores
+    peak_tf32_flops: float  # FLOP/s of TF32 products on the tensor cores
     peak_f32_flops: float  # FLOP/s of float32 FMA outside the tensor cores
     hbm_bandwidth: float  # bytes/s
     hbm_bytes: float
@@ -87,6 +88,7 @@ H100_SXM = GpuChip(
     name="NVIDIA H100 80GB HBM3",
     power_limit_w=700.0,
     peak_bf16_flops=989.4e12,
+    peak_tf32_flops=494.7e12,
     peak_f32_flops=67e12,
     hbm_bandwidth=3.35e12,
     hbm_bytes=80e9,

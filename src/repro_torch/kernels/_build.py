@@ -53,7 +53,7 @@ _ARGTYPES = {
         "mcmc_block_rows": [],
     },
     "flash_attention": {
-        "flash_attention": [P] * 4 + [I] * 10 + [F, P],
+        "flash_attention_tf32": [P] * 4 + [I] * 10 + [F, P],
         "flash_attention_wgmma": [P] * 4 + [I] * 9 + [F, P],
     },
     "slstm_scan": {

@@ -2,7 +2,8 @@
 //
 // Replaces, in src/repro/kernels/flash_attention.py:
 //   flash_attention (:75, its pallas_call at :100) and its body _fa_kernel (:29)
-//   -> flash_attention_wgmma (bf16, D 64 or 128) and flash_attention (the rest)
+//   -> flash_attention_wgmma (bf16, D 64 or 128) and flash_attention_tf32
+//      (float32 at any D, bf16 at D 16 or 32)
 //
 // What both compute, as _fa_kernel does: q (B, Sq, H, D), k and v
 // (B, Skv, KV, D), heads third.  Query head h reads kv head h / (H / KV),
@@ -61,294 +62,470 @@
 // the tensor cores need for its two products, and the softmax's other
 // float32 work comes on top.
 
-// flash_attention (float32 at any D, bf16 at D 16 or 32): products by
-// float32 FMA on the CUDA cores (67 TFLOP/s peak).  wgmma on float32
-// would run as TF32 and break the float32 bar against the plain version,
-// and D 16 and 32 occur only in reduced shapes.  One block of 256 threads
-// owns one (b, h, 64-query tile) and walks the kv tiles itself, its state
-// in registers.  Per 64-key tile: K and V are staged in shared memory as
-// float32 (K transposed, so a thread reads 4 keys of one dimension as one
-// float4); each thread computes a 4 x 4 block of scores (4 query rows x 4
-// keys) by FMA over D; the 16 threads sharing a row reduce its max and sum
-// with warp shuffles; p goes through shared memory (transposed) into the
-// PV product, where each thread owns its 4 rows x D/16 output columns.
+// flash_attention_tf32 (float32 at any D, bf16 at D 16 or 32): the products
+// on the tensor cores, by warp-level mma.sync.m16n8k8 on TF32 operands.
+// TF32 keeps 10 mantissa bits, so a float32 product is split as CUTLASS's
+// 3xTF32 (FastF32) splits it: each operand x becomes big, x rounded to
+// TF32, and small = x - big (exact in float32; the tensor cores cut it to
+// TF32), and the product sums small.big + big.small + big.big in float32
+// (small terms first).  Only small.small and small's cut are dropped,
+// about 2^-21 of the product, so scores keep float32's grade; the PV
+// product splits p (a float32 in [0, 1]) and v the same way.  bf16
+// operands, and p rounded to bf16, are exact in TF32 and take one pass.
+//
+// What bounds it on an H100: operations.  At the encoder stage's shape in
+// float32 (B 8, S 2048, 12 heads of 64, causal) the three passes of 51.6
+// GFLOP take 0.313 ms at the TF32 peak (495 TFLOP/s), against 0.770 ms
+// for the same products by float32 FMA on the CUDA cores (67 TFLOP/s) and
+// 0.060 ms of bytes.  mma.sync reaches about two thirds of wgmma's TF32
+// rate, and beside its products the split (an add, a mask and a subtract
+// an operand), the fragment loads and the softmax take the warps' issue
+// slots, about 7 instructions an HMMA; so a warp at D 64 owns two 16-row
+// tiles, and each K or V fragment it loads and splits feeds both, and the
+// softmax works in log2 units (one FFMA and one ex2 a score off the
+// borders).
+//
+// One block owns one (b, h, 128-query tile), the heaviest causal tiles
+// first: 8 warps of 16 rows, or at D 64 4 warps of 32.  A warp keeps its
+// m, l and O accumulators in registers.  K and V come in tiles of 64 keys
+// (D 64 and 128) or 128 keys (D 16 and 32: the plain version's blocks, so
+// bf16's p is rounded against the same running max) through a
+// double-buffered ring in shared memory, as float32: cp.async for float32,
+// loads widened in registers for bf16.  Q stays in shared memory (at D 128
+// its split fragments would not fit beside O and S in registers).  Every
+// fragment is split in registers as it is loaded, so the split costs no
+// shared memory.  QK^T's k slots are permuted, slot t as dim 2t and slot
+// t + 4 as dim 2t + 1 for A and B alike, so each fragment pair is one
+// 8-byte load, and rows padded by 8 floats keep those loads free of bank
+// conflicts.  The S accumulator (keys 2t, 2t + 1 of rows g, g + 8 in
+// thread 4g + t) is the PV product's A fragment as it stands, read with
+// slot t as key 2t and slot t + 4 as key 2t + 1; V's B fragment is read
+// from rows 2t and 2t + 1 to match (rows padded by 4 floats: conflict-free
+// 4-byte loads).  A row's max and sum need a shuffle across the quad that
+// shares it; l keeps each thread's share of the unrounded sum, reduced
+// once at the end.
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-namespace {
+#include <type_traits>
 
-constexpr int kBQ = 64;  // query rows per block
-constexpr int kBK = 64;  // keys per tile
-constexpr int kThreads = 256;  // 16 x 16 threads, each 4 rows x 4 keys
-constexpr int kPad = 4;  // keeps float4 rows aligned, spreads the banks
-constexpr float kNegInf = -1e30f;  // the reference's mask value
+namespace tc {
+
+constexpr int kRows = 128;  // query rows per block
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kMaskY = -1e30f * kLog2e;  // the reference's mask value -1e30, in log2 units
 constexpr unsigned kFull = 0xFFFFFFFFu;
-
-template <typename T>
-__device__ __forceinline__ float to_float(T x);
-template <>
-__device__ __forceinline__ float to_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_float<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// Column e of the DC = D/16 output columns a thread owns: 4 consecutive
-// columns every 64 when DC >= 4 (float4 reads), else DC consecutive ones.
-template <int DC>
-__device__ __forceinline__ int out_col(int tc, int e) {
-  if constexpr (DC >= 4) {
-    return (e / 4) * 64 + 4 * tc + (e % 4);
-  } else {
-    return DC * tc + e;
-  }
-}
-
-// The DC columns a thread owns from one row of shared memory, as float4,
-// float2 or float reads.
-template <int DC>
-__device__ __forceinline__ void load_cols(const float* row, int tc, float* out) {
-  if constexpr (DC >= 4) {
-#pragma unroll
-    for (int g = 0; g < DC / 4; ++g) {
-      const float4 x = *reinterpret_cast<const float4*>(row + g * 64 + 4 * tc);
-      out[4 * g] = x.x;
-      out[4 * g + 1] = x.y;
-      out[4 * g + 2] = x.z;
-      out[4 * g + 3] = x.w;
-    }
-  } else if constexpr (DC == 2) {
-    const float2 x = *reinterpret_cast<const float2*>(row + 2 * tc);
-    out[0] = x.x;
-    out[1] = x.y;
-  } else {
-    out[0] = row[tc];
-  }
-}
+constexpr uint32_t kTf32Mask = 0xFFFFE000u;  // sign, exponent and TF32's 10 mantissa bits
 
 template <int D>
-constexpr size_t smem_floats() {
-  // qT [D][BQ+pad], kT [D][BK+pad], v [BK][D], pT [BK][BQ+pad]
-  return (size_t)D * (kBQ + kPad) + (size_t)D * (kBK + kPad) + (size_t)kBK * D +
-         (size_t)kBK * (kBQ + kPad);
+constexpr int kTiles = D == 64 ? 2 : 1;  // 16-row tiles a warp owns
+template <int D>
+constexpr int kThreads = 32 * kRows / (16 * kTiles<D>);
+template <int D>
+constexpr int kKeys = D <= 32 ? 128 : 64;  // keys per K / V tile
+template <int D>
+constexpr int kQS = D + 8;  // row stride of Q and K in shared memory, floats
+template <int D>
+constexpr int kVS = D + 4;  // row stride of V
+
+// Q, then two stages of K and of V.
+template <int D>
+constexpr size_t smem_bytes() {
+  return sizeof(float) *
+         ((size_t)kRows * kQS<D> + 2 * (size_t)kKeys<D> * (kQS<D> + kVS<D>));
+}
+
+template <typename T>
+constexpr bool kIsF32 = false;
+template <>
+constexpr bool kIsF32<float> = true;
+
+// N operands as TF32 words: (big, small) when kSplit, big rounded to
+// nearest (ties away from zero), small = x - big as float32 bits, which the
+// tensor cores cut to TF32 (they read an operand's sign, exponent and top
+// 10 mantissa bits, as CUTLASS's FastF32 products rely on); else the
+// float32 bits as they are (bf16 values and bf16-rounded p are exact).
+template <bool kSplit, int N>
+__device__ __forceinline__ void split(const float* x, uint32_t* big, uint32_t* small) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    if constexpr (kSplit) {
+      big[i] = (__float_as_uint(x[i]) + 0x1000u) & kTf32Mask;
+      small[i] = __float_as_uint(x[i] - __uint_as_float(big[i]));
+    } else {
+      big[i] = __float_as_uint(x[i]);
+    }
+  }
+}
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void mma(float* c, const uint32_t* a, const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c[i] += a[i] b over one step of 8, for the M row tiles i: three TF32
+// products each (small terms first, pass by pass across the tiles), or one.
+template <bool kSplit, int M>
+__device__ __forceinline__ void mma_split(float (&c)[M][4], const uint32_t (&a_big)[M][4],
+                                          const uint32_t (&a_small)[M][4],
+                                          const uint32_t* b_big, const uint32_t* b_small) {
+  if constexpr (kSplit) {
+#pragma unroll
+    for (int i = 0; i < M; ++i) mma(c[i], a_small[i], b_big);
+#pragma unroll
+    for (int i = 0; i < M; ++i) mma(c[i], a_big[i], b_small);
+  }
+#pragma unroll
+  for (int i = 0; i < M; ++i) mma(c[i], a_big[i], b_big);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const void* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all_but_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Rows [0, N) of a tile into shared memory as float32, `stride` floats a
+// row: row i from src + i * row_elems, zeros from row `valid` on, by the
+// block's kThreads threads.  float32 goes by cp.async (its group is
+// committed by the caller); bf16 is loaded, widened and stored.
+template <typename T, int D, int N>
+__device__ __forceinline__ void load_rows(float* dst, int stride, const T* src,
+                                          size_t row_elems, int valid, int tid) {
+  if constexpr (kIsF32<T>) {
+    constexpr int kChunks = D / 4;  // 16 bytes each
+#pragma unroll 4
+    for (int idx = tid; idx < N * kChunks; idx += kThreads<D>) {
+      const int i = idx / kChunks, c = idx % kChunks;
+      const bool ok = i < valid;
+      cp_async16(dst + i * stride + 4 * c, ok ? src + i * row_elems + 4 * c : src, ok);
+    }
+  } else {
+    constexpr int kChunks = D / 8;  // 8 bf16 each
+#pragma unroll 4
+    for (int idx = tid; idx < N * kChunks; idx += kThreads<D>) {
+      const int i = idx / kChunks, c = idx % kChunks;
+      uint4 raw = make_uint4(0, 0, 0, 0);
+      if (i < valid) raw = *reinterpret_cast<const uint4*>(src + i * row_elems + 8 * c);
+      float4* out = reinterpret_cast<float4*>(dst + i * stride + 8 * c);
+      out[0] = make_float4(__uint_as_float(raw.x << 16), __uint_as_float(raw.x & 0xFFFF0000u),
+                           __uint_as_float(raw.y << 16), __uint_as_float(raw.y & 0xFFFF0000u));
+      out[1] = make_float4(__uint_as_float(raw.z << 16), __uint_as_float(raw.z & 0xFFFF0000u),
+                           __uint_as_float(raw.w << 16), __uint_as_float(raw.w & 0xFFFF0000u));
+    }
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  if constexpr (kIsF32<T>) {
+    return x;
+  } else {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void store2(T* out, float a, float b) {
+  if constexpr (kIsF32<T>) {
+    *reinterpret_cast<float2*>(out) = make_float2(a, b);
+  } else {
+    *reinterpret_cast<__nv_bfloat162*>(out) = __floats2bfloat162_rn(a, b);
+  }
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_attention_kernel(
+__global__ void __launch_bounds__(kThreads<D>, D == 64 ? 2 : 1) flash_attention_tf32_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, int sq, int skv, int h, int kvh, int causal, int has_window,
+    T* __restrict__ o, int bsz, int sq, int skv, int h, int kvh, int causal, int has_window,
     int window, float scale, int skip) {
-  constexpr int DC = D / 16;
-  constexpr int QS = kBQ + kPad;  // row stride of qT and pT
-  constexpr int KS = kBK + kPad;  // row stride of kT
+  constexpr bool kSplit = kIsF32<T>;
+  constexpr int M = kTiles<D>, BK = kKeys<D>, QS = kQS<D>, VS = kVS<D>;
+  constexpr int NT = BK / 8;  // S's n tiles, and the P V product's k steps
+  constexpr int DT = D / 8;  // the Q K^T product's k steps, and O's n tiles
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* qT = smem;
-  float* kT = qT + D * QS;
-  float* vs = kT + D * KS;
-  float* pT = vs + kBK * D;
+  float* s_q = reinterpret_cast<float*>(smem4);  // [kRows][QS]
+  float* s_k = s_q + kRows * QS;  // [2][BK][QS]
+  float* s_v = s_k + 2 * BK * QS;  // [2][BK][VS]
 
-  const int tid = threadIdx.x;
-  const int tc = tid % 16;  // key / output-column group
-  const int tr = tid / 16;  // query-row group: rows 4 tr .. 4 tr + 3
-  const int q0 = blockIdx.x * kBQ;
-  const int hq = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = hq / (h / kvh);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  // The work tile: the last query tiles (the heaviest under a causal mask) first.
+  const int n_qt = (sq + kRows - 1) / kRows;
+  const int bh = blockIdx.x % (bsz * h);
+  const int q0 = (n_qt - 1 - blockIdx.x / (bsz * h)) * kRows;
+  const int b = bh / h, hq = bh % h, hk = hq / (h / kvh);
   const int off = skv - sq;  // right-aligned queries
-
-  // Stage this block's queries, transposed: qT[d][i].
-  for (int idx = tid; idx < kBQ * D; idx += kThreads) {
-    const int i = idx / D, d = idx % D;
-    const int row = q0 + i;
-    qT[d * QS + i] =
-        row < sq ? to_float<T>(q[(((size_t)b * sq + row) * h + hq) * D + d]) : 0.0f;
-  }
-
-  float m[4], l[4], acc[4][DC];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    m[r] = kNegInf;
-    l[r] = 0.0f;
-#pragma unroll
-    for (int e = 0; e < DC; ++e) acc[r][e] = 0.0f;
-  }
 
   // The kv tiles this block walks.
   int lo = 0, hi = skv;
   if (skip) {
     const int qp_first = q0 + off;
-    const int qp_last = min(q0 + kBQ, sq) - 1 + off;
+    const int qp_last = min(q0 + kRows, sq) - 1 + off;
     if (causal) hi = min(skv, qp_last + 1);
     if (has_window) lo = max(0, qp_first - window + 1);
   }
-  const int t_lo = lo / kBK, t_hi = (hi + kBK - 1) / kBK;
+  const int t_lo = lo / BK, t_hi = (hi + BK - 1) / BK;
 
-  for (int t = t_lo; t < t_hi; ++t) {
-    const int k0 = t * kBK;
-    __syncthreads();  // the last tile's reads of kT, vs, pT are done
-    for (int idx = tid; idx < kBK * D; idx += kThreads) {
-      const int j = idx / D, d = idx % D;
-      const int key = k0 + j;
-      float kx = 0.0f, vx = 0.0f;
-      if (key < skv) {
-        const size_t g = (((size_t)b * skv + key) * kvh + hk) * D + d;
-        kx = to_float<T>(k[g]);
-        vx = to_float<T>(v[g]);
-      }
-      kT[d * KS + j] = kx;
-      vs[j * D + d] = vx;
+  const size_t kv_row = (size_t)kvh * D;
+  const T* k_bh = k + (size_t)b * skv * kv_row + (size_t)hk * D;  // key 0 of (b, hk)
+  const T* v_bh = v + (size_t)b * skv * kv_row + (size_t)hk * D;
+  auto load_kv = [&](int tile, int stage) {
+    const int k0 = tile * BK;
+    load_rows<T, D, BK>(s_k + stage * BK * QS, QS, k_bh + k0 * kv_row, kv_row, skv - k0, tid);
+    load_rows<T, D, BK>(s_v + stage * BK * VS, VS, v_bh + k0 * kv_row, kv_row, skv - k0, tid);
+  };
+  load_rows<T, D, kRows>(s_q, QS, q + (((size_t)b * sq + q0) * h + hq) * D, (size_t)h * D,
+                         sq - q0, tid);
+  load_kv(t_lo, 0);
+  cp_async_commit();
+
+  // This thread's rows: r0 + 16 i and r0 + 16 i + 8 of the block's tile, i < M.
+  const int r0 = warp * 16 * M + g;
+  const int qpos0 = q0 + r0 + off;
+  const int warp_qpos = q0 + warp * 16 * M + off;  // the warp's first row's position
+  const float scale_log2 = scale * kLog2e;  // scores in log2 units: p = exp2(y - m)
+  float m[M][2], l[M][2];  // m in log2 units
+  float acc[DT][M][4];
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      m[i][r] = kMaskY;
+      l[i][r] = 0.0f;
     }
+#pragma unroll
+  for (int d = 0; d < DT; ++d)
+#pragma unroll
+    for (int i = 0; i < M; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[d][i][e] = 0.0f;
+
+  for (int tile = t_lo; tile < t_hi; ++tile) {
+    const int stage = (tile - t_lo) & 1;
+    if (tile + 1 < t_hi) load_kv(tile + 1, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait_all_but_one();  // this tile's group (and Q's) has landed
     __syncthreads();
+    const float* s_kt = s_k + stage * BK * QS;
+    const float* s_vt = s_v + stage * BK * VS;
+    const int k0 = tile * BK;
 
-    // Scores: rows 4 tr + r, keys 4 tc + c.
-    float s[4][4];
+    // S = Q K^T: k slot t is dim 8 kk + 2t, slot t + 4 is dim 8 kk + 2t + 1.
+    float s[NT][M][4];
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) s[r][c] = 0.0f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(qT + d * QS + 4 * tr);
-      const float4 bk = *reinterpret_cast<const float4*>(kT + d * KS + 4 * tc);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {bk.x, bk.y, bk.z, bk.w};
+      for (int i = 0; i < M; ++i)
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
+        for (int e = 0; e < 4; ++e) s[n][i][e] = 0.0f;
 #pragma unroll
-        for (int c = 0; c < 4; ++c) s[r][c] = fmaf(av[r], bv[c], s[r][c]);
-    }
-
-    // Mask, online softmax over the tile, p to shared memory.
+    for (int kk = 0; kk < DT; ++kk) {
+      uint32_t a_big[M][4], a_small[M][4];
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int qpos = q0 + 4 * tr + r + off;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int kpos = k0 + 4 * tc + c;
-        bool keep = true;
-        if (causal) keep = keep && kpos <= qpos;
-        if (has_window) keep = keep && kpos > qpos - window;
-        float x = keep ? s[r][c] * scale : kNegInf;
-        if (kpos >= skv) x = -INFINITY;  // past the keys: weight 0
-        s[r][c] = x;
-        mx = fmaxf(mx, x);
+      for (int i = 0; i < M; ++i) {
+        const float* row = s_q + (r0 + 16 * i) * QS + 8 * kk + 2 * t;
+        const float2 x0 = *reinterpret_cast<const float2*>(row);
+        const float2 x1 = *reinterpret_cast<const float2*>(row + 8 * QS);
+        const float a[4] = {x0.x, x1.x, x0.y, x1.y};
+        split<kSplit, 4>(a, a_big[i], a_small[i]);
       }
 #pragma unroll
-      for (int w = 8; w >= 1; w >>= 1) mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, w));
-      const float m_new = fmaxf(m[r], mx);
-      const float alpha = expf(m[r] - m_new);
-      float sum = 0.0f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float p = expf(s[r][c] - m_new);
-        sum += p;
-        pT[(4 * tc + c) * QS + 4 * tr + r] = to_float<T>(from_float<T>(p));
+      for (int n = 0; n < NT; ++n) {
+        const float2 y = *reinterpret_cast<const float2*>(s_kt + (8 * n + g) * QS + 8 * kk + 2 * t);
+        const float bv[2] = {y.x, y.y};
+        uint32_t b_big[2], b_small[2];
+        split<kSplit, 2>(bv, b_big, b_small);
+        mma_split<kSplit, M>(s[n], a_big, a_small, b_big, b_small);
       }
-#pragma unroll
-      for (int w = 8; w >= 1; w >>= 1) sum += __shfl_xor_sync(kFull, sum, w);
-      l[r] = alpha * l[r] + sum;
-      m[r] = m_new;
-#pragma unroll
-      for (int e = 0; e < DC; ++e) acc[r][e] *= alpha;
     }
-    __syncthreads();
 
-    // acc += p . v over the tile's keys.
-#pragma unroll 4
-    for (int j = 0; j < kBK; ++j) {
-      const float4 p4 = *reinterpret_cast<const float4*>(pT + j * QS + 4 * tr);
-      const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
-      float vv[DC];
-      load_cols<DC>(vs + j * D, tc, vv);
+    // Online softmax in log2 units; p (rounded to the inputs' type) replaces
+    // s.  s[n][i][e] is row r0 + 16 i + 8 (e / 2), key k0 + 8 n + 2t + (e % 2).
+    // Only a tile that the diagonal, the window's edge or Skv crosses is
+    // masked: there a score is scaled, masked (-1e30, or -inf past Skv) and
+    // p = exp2(y - m_new), since at -1e30 the rounding of an FMA's product
+    // alone would overflow exp2; elsewhere p = exp2(fma(s, scale log2 e,
+    // -m_new)), the row's max taken on the raw scores (the scale is > 0).
+    const bool border = (causal && k0 + BK - 1 > warp_qpos) ||
+                        (has_window && k0 <= warp_qpos + 16 * M - 1 - window) || k0 + BK > skv;
+    float alpha[M][2];
+    auto softmax = [&](auto masked) {
+      constexpr bool kMasked = decltype(masked)::value;
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
+      for (int i = 0; i < M; ++i)
 #pragma unroll
-        for (int e = 0; e < DC; ++e) acc[r][e] = fmaf(pv[r], vv[e], acc[r][e]);
+        for (int r = 0; r < 2; ++r) {
+          if constexpr (kMasked) {
+#pragma unroll
+            for (int n = 0; n < NT; ++n)
+#pragma unroll
+              for (int c = 0; c < 2; ++c) {
+                const int qpos = qpos0 + 16 * i + 8 * r;
+                const int kpos = k0 + 8 * n + 2 * t + c;
+                bool keep = true;
+                if (causal) keep = keep && kpos <= qpos;
+                if (has_window) keep = keep && kpos > qpos - window;
+                float y = keep ? s[n][i][2 * r + c] * scale_log2 : kMaskY;
+                if (kpos >= skv) y = -INFINITY;  // past the keys: weight 0
+                s[n][i][2 * r + c] = y;
+              }
+          }
+          float mx = -INFINITY;
+#pragma unroll
+          for (int n = 0; n < NT; ++n)
+            mx = fmaxf(mx, fmaxf(s[n][i][2 * r], s[n][i][2 * r + 1]));
+          mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+          if constexpr (!kMasked) mx *= scale_log2;
+          const float m_new = fmaxf(m[i][r], mx);
+          alpha[i][r] = exp2_approx(m[i][r] - m_new);
+          m[i][r] = m_new;
+          float sum = 0.0f;
+#pragma unroll
+          for (int n = 0; n < NT; ++n)
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              float& x = s[n][i][2 * r + c];
+              const float p = kMasked ? exp2_approx(x - m_new)
+                                      : exp2_approx(fmaf(x, scale_log2, -m_new));
+              sum += p;
+              x = round_to<T>(p);
+            }
+          l[i][r] = alpha[i][r] * l[i][r] + sum;
+        }
+    };
+    if (border) {
+      softmax(std::true_type{});
+    } else {
+      softmax(std::false_type{});
     }
+#pragma unroll
+    for (int d = 0; d < DT; ++d)
+#pragma unroll
+      for (int i = 0; i < M; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[d][i][e] *= alpha[i][e / 2];
+
+    // O += P V: k step n is keys 8 n .. 8 n + 7, slot t key 2t, slot t + 4 key 2t + 1.
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      uint32_t a_big[M][4], a_small[M][4];
+#pragma unroll
+      for (int i = 0; i < M; ++i) {
+        const float a[4] = {s[n][i][0], s[n][i][2], s[n][i][1], s[n][i][3]};
+        split<kSplit, 4>(a, a_big[i], a_small[i]);
+      }
+      const float* v_row = s_vt + (8 * n + 2 * t) * VS + g;
+#pragma unroll
+      for (int d = 0; d < DT; ++d) {
+        const float bv[2] = {v_row[8 * d], v_row[VS + 8 * d]};
+        uint32_t b_big[2], b_small[2];
+        split<kSplit, 2>(bv, b_big, b_small);
+        mma_split<kSplit, M>(acc[d], a_big, a_small, b_big, b_small);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
   }
 
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = q0 + 4 * tr + r;
-    if (row >= sq) continue;
-    const float denom = fmaxf(l[r], 1e-30f);
-    T* out = o + (((size_t)b * sq + row) * h + hq) * D;
+  for (int i = 0; i < M; ++i)
 #pragma unroll
-    for (int e = 0; e < DC; ++e) out[out_col<DC>(tc, e)] = from_float<T>(acc[r][e] / denom);
-  }
+    for (int r = 0; r < 2; ++r) {
+      float li = l[i][r];
+      li += __shfl_xor_sync(kFull, li, 1);
+      li += __shfl_xor_sync(kFull, li, 2);
+      const int row = q0 + r0 + 16 * i + 8 * r;
+      if (row >= sq) continue;
+      const float denom = fmaxf(li, 1e-30f);
+      T* out = o + (((size_t)b * sq + row) * h + hq) * D + 2 * t;
+#pragma unroll
+      for (int d = 0; d < DT; ++d)
+        store2<T>(out + 8 * d, acc[d][i][2 * r] / denom, acc[d][i][2 * r + 1] / denom);
+    }
 }
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, int b, int sq, int skv,
            int h, int kvh, int causal, int has_window, int window, float scale,
            cudaStream_t stream) {
-  const size_t smem = smem_floats<D>() * sizeof(float);
-  auto kernel = flash_attention_kernel<T, D>;
+  const size_t smem = smem_bytes<D>();
+  auto kernel = flash_attention_tf32_kernel<T, D>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   // Skipping masked tiles is exact only when every query row has a real key.
   const int skip = sq <= skv && (!has_window || window >= 1);
-  const dim3 grid((sq + kBQ - 1) / kBQ, h, b);
-  kernel<<<grid, kThreads, smem, stream>>>(
+  const long long blocks = (long long)((sq + kRows - 1) / kRows) * h * b;
+  if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, kThreads<D>, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), sq, skv, h, kvh, causal, has_window, window, scale, skip);
+      static_cast<T*>(o), b, sq, skv, h, kvh, causal, has_window, window, scale, skip);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(int d, const void* q, const void* k, const void* v, void* o, int b, int sq,
-             int skv, int h, int kvh, int causal, int has_window, int window, float scale,
-             cudaStream_t stream) {
+}  // namespace tc
+
+// q (B, Sq, H, D), k and v (B, Skv, KV, D), o like q; contiguous and 16-byte
+// aligned; float32 (bf16 = 0) at D 16, 32, 64 or 128, or bfloat16 (bf16 = 1)
+// at D 16 or 32 (the wgmma kernel takes bf16 at 64 and 128); H a multiple
+// of KV.  window is read only when has_window.  Returns the CUDA error of
+// the launch (0 on success).
+extern "C" int flash_attention_tf32(const void* q, const void* k, const void* v, void* o,
+                                    int b, int sq, int skv, int h, int kvh, int d, int bf16,
+                                    int causal, int has_window, int window, float scale,
+                                    void* stream) {
+  if (b < 1 || sq < 1 || skv < 1 || kvh < 1 || h % kvh) return (int)cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) % 16)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using BF = __nv_bfloat16;
+#define TC_LAUNCH(T, D)                                                                    \
+  tc::launch<T, D>(q, k, v, o, b, sq, skv, h, kvh, causal, has_window, window, scale, s)
+  if (bf16) {
+    switch (d) {
+      case 16:
+        return TC_LAUNCH(BF, 16);
+      case 32:
+        return TC_LAUNCH(BF, 32);
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  }
   switch (d) {
     case 16:
-      return launch<T, 16>(q, k, v, o, b, sq, skv, h, kvh, causal, has_window, window,
-                           scale, stream);
+      return TC_LAUNCH(float, 16);
     case 32:
-      return launch<T, 32>(q, k, v, o, b, sq, skv, h, kvh, causal, has_window, window,
-                           scale, stream);
+      return TC_LAUNCH(float, 32);
     case 64:
-      return launch<T, 64>(q, k, v, o, b, sq, skv, h, kvh, causal, has_window, window,
-                           scale, stream);
+      return TC_LAUNCH(float, 64);
     case 128:
-      return launch<T, 128>(q, k, v, o, b, sq, skv, h, kvh, causal, has_window, window,
-                            scale, stream);
+      return TC_LAUNCH(float, 128);
     default:
       return (int)cudaErrorInvalidValue;
   }
-}
-
-}  // namespace
-
-// q (B, Sq, H, D), k and v (B, Skv, KV, D), o like q; contiguous, all float32
-// (bf16 = 0) or all bfloat16 (bf16 = 1); D in {16, 32, 64, 128}; H a
-// multiple of KV.  window is read only when has_window.  Returns the CUDA
-// error of the launch (0 on success).
-extern "C" int flash_attention(const void* q, const void* k, const void* v, void* o, int b,
-                               int sq, int skv, int h, int kvh, int d, int bf16, int causal,
-                               int has_window, int window, float scale, void* stream) {
-  if (b < 1 || sq < 1 || skv < 1 || kvh < 1 || h % kvh) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    return dispatch<__nv_bfloat16>(d, q, k, v, o, b, sq, skv, h, kvh, causal, has_window,
-                                   window, scale, s);
-  }
-  return dispatch<float>(d, q, k, v, o, b, sq, skv, h, kvh, causal, has_window, window,
-                         scale, s);
+#undef TC_LAUNCH
 }
 
 // ---------------------------------------------------------------------------

@@ -20,10 +20,14 @@ reference, float32 or bfloat16.
     version's blocks, so the two differ only in float32 rounding: the
     products' summation order, exp as the card's exp2 of a score scaled by
     log2 e, and the output scaled by the reciprocal of l);
-    float32, and bf16 at D 16 or 32, take ``flash_attention``, the float32
-    FMA kernel (64-key tiles, so in bf16 p is also rounded against another
-    running max).  It counts its launches in ``.launches`` and, by route,
-    in ``.route_launches``.
+    float32, and bf16 at D 16 or 32, take ``flash_attention_tf32``, the
+    tensor cores' TF32 ``mma.sync`` with float32 operands split in three
+    products (big·big + big·small + small·big, CUTLASS's 3xTF32), which
+    keep float32's grade; bf16 is exact in TF32 and takes one.  Its tiles
+    are 128 keys at D 16 and 32 (the plain version's blocks, so bf16's p
+    is rounded against the same running max) and 64 at D 64 and 128.  It
+    counts its launches in ``.launches`` and, by route, in
+    ``.route_launches``.
 """
 
 from __future__ import annotations
@@ -36,8 +40,8 @@ NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)  # the kernels'; other D <= 128 (zamba2's 80) pad up to one
 WGMMA_HEAD_DIMS = (64, 128)
 # The kernels' names as a profiler reports them (substrings of the mangled
-# names), one per route: "fma", then "wgmma".
-KERNEL_NAMES = ("flash_attention_kernel", "flash_attention_wgmma_kernel")
+# names), one per route: "tf32", then "wgmma".
+KERNEL_NAMES = ("flash_attention_tf32_kernel", "flash_attention_wgmma_kernel")
 
 
 def padded_head_dim(d: int) -> int:
@@ -49,10 +53,10 @@ def padded_head_dim(d: int) -> int:
 
 def route(dtype, d: int) -> str:
     """The kernel that takes q of this type and head dim: "wgmma" for bf16
-    at a padded D of 64 or 128, else "fma" (float32 stays off the tensor
-    cores, where it would run as TF32)."""
+    at a padded D of 64 or 128, else "tf32" (float32 at any D, as three
+    TF32 products an operand pair, and bf16 at D 16 or 32, as one)."""
     dp = padded_head_dim(d)
-    return "wgmma" if dtype == torch.bfloat16 and dp in WGMMA_HEAD_DIMS else "fma"
+    return "wgmma" if dtype == torch.bfloat16 and dp in WGMMA_HEAD_DIMS else "tf32"
 
 
 def _blocks(q, k, v, block_q: int, block_k: int) -> tuple[int, int]:
@@ -127,7 +131,10 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=None):
     dp = padded_head_dim(d)
     if dp != d:  # zero columns change no dot product; the output's are cut off
         q, k, v = (torch.nn.functional.pad(t, (0, dp - d)) for t in (q, k, v))
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    # Both kernels read rows in 16-byte pieces: a view that starts off that
+    # alignment is copied.
+    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
+               for t in (q.contiguous(), k.contiguous(), v.contiguous()))
     out = torch.empty_like(q)
     lib = _build.library("flash_attention")
     window_args = (int(window is not None), int(window) if window is not None else 0, d**-0.5)
@@ -137,7 +144,7 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=None):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, skv, h, kvh, dp,
             int(causal), *window_args, _build.stream_of(q))
     else:
-        err = lib.flash_attention(
+        err = lib.flash_attention_tf32(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, skv, h, kvh, dp,
             int(dt == torch.bfloat16), int(causal), *window_args, _build.stream_of(q))
     _build.check(err, f"flash_attention ({kind})")
@@ -146,4 +153,4 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=None):
 
 
 flash_attention_cuda.launches = 0
-flash_attention_cuda.route_launches = {"fma": 0, "wgmma": 0}
+flash_attention_cuda.route_launches = {"tf32": 0, "wgmma": 0}

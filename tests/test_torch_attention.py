@@ -119,13 +119,13 @@ def test_cudaless_call_raises_naming_cuda():
 
 @pytest.mark.parametrize("dtype,d,want", [
     *[(torch.bfloat16, d, "wgmma") for d in (64, 128, 80, 48, 100)],
-    *[(torch.bfloat16, d, "fma") for d in (8, 16, 32)],
-    *[(torch.float32, d, "fma") for d in (8, 16, 32, 64, 80, 128)],
+    *[(torch.bfloat16, d, "tf32") for d in (8, 16, 32)],
+    *[(torch.float32, d, "tf32") for d in (8, 16, 32, 64, 80, 128)],
 ])
 def test_route_by_type_and_padded_head_dim(dtype, d, want):
     """bf16 at a padded D of 64 or 128 (every full-width config; zamba2's 80
     pads to 128) takes the wgmma kernel; float32 at any D, and bf16 at D 16
-    or 32, the float32 FMA kernel."""
+    or 32, the split-TF32 tensor-core kernel."""
     assert fa.route(dtype, d) == want
 
 
@@ -138,8 +138,63 @@ def test_route_raises_above_128(dtype):
 def test_kernel_names_tell_the_routes_apart():
     """The profile split in chip_smoke.py classifies a kernel by these
     substrings of its name: neither may contain the other."""
-    fma_name, wgmma_name = fa.KERNEL_NAMES
-    assert fma_name not in wgmma_name and wgmma_name not in fma_name
+    tf32_name, wgmma_name = fa.KERNEL_NAMES
+    assert tf32_name not in wgmma_name and wgmma_name not in tf32_name
+
+
+def _tf32(x):
+    """x with the low 13 of its 23 mantissa bits cleared: a TF32 operand (the
+    kernel rounds to nearest instead, which halves this error)."""
+    return (x.view(torch.int32) & -(1 << 13)).view(torch.float32)
+
+
+def _tf32_matmul(a, b, passes):
+    """a @ b as the tensor cores form it from TF32 operands, summed in
+    float32 (a product of two TF32 values is exact in float32): one pass,
+    or three of the split a = big + small, b likewise, dropping small.small."""
+    a_big, b_big = _tf32(a), _tf32(b)
+    if passes == 1:
+        return a_big @ b_big
+    a_small, b_small = _tf32(a - a_big), _tf32(b - b_big)
+    return a_small @ b_big + a_big @ b_small + a_big @ b_big
+
+
+def _tf32_attention(q, k, v, causal, window, passes):
+    """Float32 attention with both products (QK^T, and PV with p in [0, 1])
+    taken as :func:`_tf32_matmul` takes them; masks as the kernels'."""
+    b, sq, h, d = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    qf = q.reshape(b, sq, kvh, h // kvh, d).permute(0, 2, 3, 1, 4)
+    kf = k.permute(0, 2, 1, 3)[:, :, None]
+    vf = v.permute(0, 2, 1, 3)[:, :, None]
+    s = _tf32_matmul(qf, kf.transpose(-1, -2), passes) * d**-0.5
+    q_pos = torch.arange(sq)[:, None] + (skv - sq)
+    k_pos = torch.arange(skv)[None, :]
+    keep = torch.ones((sq, skv), dtype=torch.bool)
+    if causal:
+        keep &= k_pos <= q_pos
+    if window is not None:
+        keep &= k_pos > q_pos - window
+    s = torch.where(keep, s, fa.NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    out = _tf32_matmul(p, vf, passes) / p.sum(dim=-1, keepdim=True)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d)
+
+
+@pytest.mark.parametrize("b,sq,skv,h,kv,d,causal,window,dtype",
+                         [c for c in CASES if c[-1] == "float32"])
+def test_split_tf32_products_keep_the_float32_bar(b, sq, skv, h, kv, d, causal, window, dtype):
+    """The split-TF32 kernel's error budget, on the CPU: attention whose two
+    products are three TF32 passes each stays within the float32 bar (2e-5)
+    of the plain version at the float32 cases' shapes and inputs; one TF32
+    pass does not."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(sq + d + h, b, sq, skv, h, kv, d))
+    want = flash_attention_plain(q, k, v, causal=causal, window=window).numpy()
+    three = _tf32_attention(q, k, v, causal, window, passes=3).numpy()
+    one = _tf32_attention(q, k, v, causal, window, passes=1).numpy()
+    np.testing.assert_allclose(three, want, rtol=F32_FLASH, atol=F32_FLASH)
+    assert not np.allclose(one, want, rtol=F32_FLASH, atol=F32_FLASH), float(
+        np.abs(one - want).max())
 
 
 WGMMA_CASES = [  # the wgmma kernel's 128-key tiles are the plain version's default blocks
@@ -187,3 +242,27 @@ def test_wgmma_kernel_matches_plain_on_card(card, b, s, h, kv, d):
     want = flash_attention_plain(q, k, v, causal=True).float()
     err = (got - want).abs()
     assert bool((err <= BF16_FLASH + BF16_FLASH * want.abs()).all()), float(err.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,kv,d,dtype", [
+    (8, 2048, 12, 12, 64, torch.float32),  # the encoder stage's 2048 bucket
+    (8, 2048, 8, 2, 128, torch.float32),  # D 128, GQA 4:1
+    (2, 256, 4, 2, 16, torch.bfloat16),
+    (2, 256, 4, 2, 32, torch.bfloat16),
+])
+def test_tf32_kernel_matches_plain_on_card(card, b, s, h, kv, d, dtype):
+    """On the card: the split-TF32 kernel against its plain version, float32
+    within 2e-5 and bf16 within 1.6e-2, one launch on its route each."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(1)
+    q, k, v = (torch.randn(shape, generator=gen, device=card).to(dtype)
+               for shape in ((b, s, h, d), (b, s, kv, d), (b, s, kv, d)))
+    before = dict(flash_attention_cuda.route_launches)
+    got = flash_attention_cuda(q, k, v, causal=True).float()
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.route_launches == {**before, "tf32": before["tf32"] + 1}
+    want = flash_attention_plain(q, k, v, causal=True).float()
+    tol = F32_FLASH if dtype == torch.float32 else BF16_FLASH
+    err = (got - want).abs()
+    assert bool((err <= tol + tol * want.abs()).all()), float(err.max())
