@@ -144,7 +144,14 @@ Phases, each of which must pass or the script exits non-zero:
      against the CPU (logits and every cache leaf within 2e-4, pos bit for
      bit, router choices equal; xlstm also over 4 + 4 at its registered
      init, its sLSTM's cache leaves, where beyond 2e-4, held against the CPU
-     with the scan in float64; xlstm's slstm_scan launches counted);
+     with the scan in float64; xlstm's slstm_scan launches counted); then
+     (``depth_phase``) xlstm-1.3b, qwen2-moe-a2.7b, zamba2-2.7b,
+     whisper-medium, llama-3.2-vision-11b and gemma-2b at full width and
+     depth in bf16, B 4 x 1,024 byte tokens and 64 greedy steps each, with
+     tinyllama's lines and check (qwen2-moe at the MoE bar, its dropped
+     choices counted and its decode's experts against the teacher pass's;
+     xlstm's check at the registered init over SLSTM_STEPS, over the full
+     length with r at fan-in dh) and a "decode depth summary" line each;
   4i. training (``train_phase``): tinyllama-1.1b at full width and depth
      (bf16, remat, microbatch 2, float32 AdamW state) through ``train()``
      and ``make_train_step`` on B 8 x 2,048 byte tokens for 6 steps, saved
@@ -174,8 +181,9 @@ Phases, each of which must pass or the script exits non-zero:
      xlstm-1.3b's call (B 2, S 2,048, D 2,048, 4 heads, float32) the
      forward kernel against ``slstm_scan_plain`` over the first
      SLSTM_STEPS steps at the registered init and over every step with r
-     at fan-in dh (2e-5), the backward kernel against
-     ``slstm_scan_backward_plain`` at B 2 x S 256 (d_wx, d_r, d_bias within
+     at fan-in dh (2e-5), and at the decode launch (B 4, S 1, from a
+     nonzero state), the backward kernel against
+     ``slstm_scan_backward_plain`` at B 2 x S 256 and S 2,048 (d_wx, d_r, d_bias within
      1e-4 of their largest magnitude, two launches equal bit for bit; and
      at B 40 x S 8, where a cell thread takes more than one row), both
      kernels' ms, plain ms, bounds, microseconds a step, each phase of a
@@ -189,7 +197,8 @@ Phases, each of which must pass or the script exits non-zero:
      3, their ``ok`` records.  The
      kernels' main-path launches are 4g's xlstm passes (one a layer, and a
      torch.profiler count of the pass's device kernels), 4h's xlstm decode
-     checks (one a layer for the prefill and for each step) and 4i's xlstm
+     checks and full-depth decode (one a layer for the prefill and for each
+     step) and 4i's xlstm
      gradient checks (the forward twice under remat, the backward once);
      "sLSTM phase wall" closes it;
   4l. the router's calibration (``calibration_phase``,
@@ -296,6 +305,11 @@ MCMC_DIRECT_SELECTION = [1, 4, 8, 9, 10, 12]
 DECODE_BATCH, DECODE_PROMPT, DECODE_STEPS = 8, 2048, 256
 RING_PROMPT, RING_STEPS = 5120, 64
 PARITY_PROMPT, PARITY_STEPS = 256, 8
+# Phase 4h (4): the families that fit one card in bf16, at full width and
+# depth: B 4 prompts of 1,024 byte tokens, then 64 greedy steps.
+DEPTH_FAMILIES = ("xlstm-1.3b", "qwen2-moe-a2.7b", "zamba2-2.7b", "whisper-medium",
+                  "llama-3.2-vision-11b", "gemma-2b")
+DEPTH_BATCH, DEPTH_PROMPT, DEPTH_STEPS = 4, 1024, 64
 # Phase 4i (train): tinyllama's steps of B 8 x 2,048 tokens through train()
 # and the fixed-batch run; the card-against-CPU gradients at B 2 x 128; the
 # Ising fleet step at one card's shard of the reference's ising-fleet cell
@@ -766,7 +780,6 @@ def families_phase(dev, reset_counts, counts, expect, launches, enc_docs, key) -
     versions): embeddings within 2e-4 and the MoE routers' choices equal.
     """
     import copy
-    import gc
 
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -785,13 +798,6 @@ def families_phase(dev, reset_counts, counts, expect, launches, enc_docs, key) -
     print("families: cuts: mixtral-8x22b n_layers 56 -> 2 in (2); in (3) n_layers -> one "
           "group for all six, whisper's encoder_layers 24 -> 1, float32; widths, heads, "
           "experts, vocabularies and frontend lengths as registered")
-
-    def gb(n_bytes: float) -> str:
-        return f"{n_bytes / 1e9:.2f} GB"
-
-    def release() -> None:
-        gc.collect()
-        torch.cuda.empty_cache()
 
     def load(cfg):
         torch.cuda.reset_peak_memory_stats()
@@ -1127,6 +1133,160 @@ def decode_split(prof, wall: float, n_steps: int, prefix: str = "decode.",
                                 else "not measured (no region spans on the device)")}
 
 
+def gb(n: float) -> str:
+    return f"{n / 1e9:.3f} GB"
+
+
+def release() -> None:
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def greedy(cfg, model, prompt, max_len, steps, label, frontend=None):
+    """Prefill ``prompt`` (B, S) (and the vlm / encdec ``frontend``) through
+    the step makers, then ``steps`` greedy decode steps: (the tokens fed (B,
+    S + steps), the logits at positions S - 1 .. S + steps - 1 (B, steps +
+    1, V), the greedy tokens (B, steps + 1), ms a step by CUDA events, the
+    warm prefill's wall (a second prefill into the same slots), the decode
+    wall, the cache)."""
+    import torch
+
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import init_cache
+
+    b, s = prompt.shape
+    prefill_step, step = make_prefill_step(cfg), make_decode_step(cfg)
+    cache = init_cache(cfg, b, max_len)
+    positions = torch.arange(s, s + steps, device=prompt.device)[:, None, None].expand(steps, b, 1)
+    walls = []
+    for _ in range(2):  # cold (allocations, GEMM heuristics), then warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill_step(model, prompt, cache, frontend)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    t_cold, t_prefill = walls
+    last = [logits[:, -1].clone()]
+    del logits
+    gen = [torch.argmax(last[0], dim=-1).to(torch.int32)]
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(steps)]
+    t0 = time.perf_counter()
+    for i in range(steps):
+        events[i][0].record()
+        nt, lg, cache = step(model, gen[-1][:, None], positions[i], cache)
+        events[i][1].record()
+        last.append(lg)
+        gen.append(nt)
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    ms = [a.elapsed_time(e) for a, e in events]
+    fed = torch.cat([prompt, torch.stack(gen[:-1], dim=1).to(prompt.dtype)], dim=1)
+    print(f"decode {label}: prefill B={b} S={s} wall {t_prefill * 1e3:.3f} ms warm "
+          f"({b * s / t_prefill:.1f} tokens/s; cold {t_cold * 1e3:.3f} ms); {steps} greedy "
+          f"steps: median "
+          f"{percentile(ms, 0.5):.4f} ms, p99 {percentile(ms, 0.99):.4f} ms, min "
+          f"{min(ms):.4f} ms a step (CUDA events), wall {t_decode:.3f} s "
+          f"({b * steps / t_decode:.1f} tokens/s)")
+    return (fed, torch.stack(last, dim=1), torch.stack(gen, dim=1), ms, t_prefill,
+            t_decode, cache)
+
+
+def teacher_check(cfg, model, fed, step_logits, gen, s, bar, label, frontend=None) -> float:
+    """The teacher-forced forward over ``fed`` (and ``frontend``): the max abs
+    logit error at each predicted position, and the greedy tokens against
+    its argmax wherever its top-2 gap exceeds twice that error.  Returns the
+    largest error."""
+    import torch
+
+    from repro_torch.models import forward
+
+    with torch.no_grad():
+        full, _, _ = forward(cfg, model, fed, mode="train", frontend=frontend)
+    v = cfg.vocab_size
+    teacher = full[:, s - 1:, :v]
+    del full
+    err = (step_logits[..., :v] - teacher).abs().amax(dim=(0, 2))  # by position
+    top2 = torch.topk(teacher, 2, dim=-1).values
+    decisive = (top2[..., 0] - top2[..., 1]) > 2 * err[None, :]
+    want = torch.argmax(teacher, dim=-1).to(torch.int32)
+    agree = (want == gen) | ~decisive
+    n_pos = err.numel()
+    sample = " ".join(f"{t}: {float(err[t]):.2e}" for t in
+                      sorted({0, 1, 2, 4, 8, 16, 32, 64, 128, n_pos - 1}) if t < n_pos)
+    print(f"decode {label} teacher-forced check over {fed.shape[1]} tokens: max abs logit "
+          f"error {float(err.max()):.4e} (median {float(err.median()):.4e}; by predicted "
+          f"position {sample}); greedy == teacher argmax at {int((decisive & agree).sum())}"
+          f" of {int(decisive.sum())} decisive of {decisive.numel()} positions; tokens "
+          f"equal overall {int((want == gen).sum())} of {gen.numel()}")
+    if not bool(torch.isfinite(step_logits[..., :v]).all()):
+        fail(f"decode {label}: logits not finite")
+    if not bool(agree.all()):
+        fail(f"decode {label}: the greedy token differs from the teacher-forced argmax at "
+             f"{int((~agree).sum())} decisive positions")
+    if float(err.max()) >= bar:
+        fail(f"decode {label}: max abs logit error {float(err.max())} >= {bar}")
+    return float(err.max())
+
+
+def profiled(fn, n: int) -> dict:
+    """``fn`` run n times under torch.profiler, the attention (over the cache
+    in decode, the chunked route in prefill) in a named span:
+    :func:`decode_split` of the run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.models import attention as attn
+
+    originals = {name: getattr(attn, name) for name in ("_sdpa", "_sdpa_chunked")}
+
+    def span(f):
+        def wrapped(*a, **kw):
+            with record_function("decode.attention"):
+                return f(*a, **kw)
+        return wrapped
+
+    try:
+        for name, f in originals.items():
+            setattr(attn, name, span(f))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(n):
+                fn(i)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        for name, f in originals.items():
+            setattr(attn, name, f)
+    return decode_split(prof, wall, n)
+
+
+def host_syncs(fn) -> int:
+    """The host synchronisations of one ``fn()`` (CUDA's sync debug mode)."""
+    import torch
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
 def decode_phase(dev, reset_counts, counts, expect, launches) -> None:
     """Phase 4h: prefill and decode through the caches on the card.
 
@@ -1166,126 +1326,28 @@ def decode_phase(dev, reset_counts, counts, expect, launches) -> None:
     plain version on float64 copies of its inputs): an sLSTM cache leaf
     beyond 2e-4 of the float32 CPU must lie within 4x the float32 CPU's own
     distance from the float64 run, plus 2e-5 of its largest magnitude.
+    (4), the families at full depth, is :func:`depth_phase`.
     """
     import copy
-    import gc
 
     import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
 
     from repro_torch.configs import REGISTRY
     from repro_torch.configs.base import get_config
-    from repro_torch.data.synthetic import synthetic_document
-    from repro_torch.data.tokenizer import ByteTokenizer
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import slstm_scan as kslstm
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
-    from repro_torch.models import attention as attn
     from repro_torch.models import decode_step, init_cache, init_params, prefill
-    from repro_torch.models import forward
     from repro_torch.models import mlp as mlp_mod
 
     t_phase = time.perf_counter()
-
-    def gb(n: float) -> str:
-        return f"{n / 1e9:.3f} GB"
-
-    def release() -> None:
-        gc.collect()
-        torch.cuda.empty_cache()
-
-    def tree_bytes(tree) -> int:
-        if isinstance(tree, dict):
-            return sum(tree_bytes(v) for v in tree.values())
-        return tree.numel() * tree.element_size()
-
-    def greedy(cfg, model, prompt, max_len, steps, label):
-        """Prefill ``prompt`` (B, S) through the step makers, then ``steps``
-        greedy decode steps: (the tokens fed (B, S + steps), the logits at
-        positions S - 1 .. S + steps - 1 (B, steps + 1, V), the greedy
-        tokens (B, steps + 1), ms a step by CUDA events, the warm prefill's
-        wall (a second prefill into the same slots), the decode wall, the
-        cache)."""
-        b, s = prompt.shape
-        prefill_step, step = make_prefill_step(cfg), make_decode_step(cfg)
-        cache = init_cache(cfg, b, max_len)
-        positions = torch.arange(s, s + steps, device=dev)[:, None, None].expand(steps, b, 1)
-        walls = []
-        for _ in range(2):  # cold (allocations, GEMM heuristics), then warm
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            logits, cache = prefill_step(model, prompt, cache)
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-        t_cold, t_prefill = walls
-        last = [logits[:, -1].clone()]
-        del logits
-        gen = [torch.argmax(last[0], dim=-1).to(torch.int32)]
-        events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-                  for _ in range(steps)]
-        t0 = time.perf_counter()
-        for i in range(steps):
-            events[i][0].record()
-            nt, lg, cache = step(model, gen[-1][:, None], positions[i], cache)
-            events[i][1].record()
-            last.append(lg)
-            gen.append(nt)
-        torch.cuda.synchronize()
-        t_decode = time.perf_counter() - t0
-        ms = [a.elapsed_time(e) for a, e in events]
-        fed = torch.cat([prompt, torch.stack(gen[:-1], dim=1).to(prompt.dtype)], dim=1)
-        print(f"decode {label}: prefill B={b} S={s} wall {t_prefill * 1e3:.3f} ms warm "
-              f"({b * s / t_prefill:.1f} tokens/s; cold {t_cold * 1e3:.3f} ms); {steps} greedy "
-              f"steps: median "
-              f"{percentile(ms, 0.5):.4f} ms, p99 {percentile(ms, 0.99):.4f} ms, min "
-              f"{min(ms):.4f} ms a step (CUDA events), wall {t_decode:.3f} s "
-              f"({b * steps / t_decode:.1f} tokens/s)")
-        return (fed, torch.stack(last, dim=1), torch.stack(gen, dim=1), ms, t_prefill,
-                t_decode, cache)
-
-    def teacher_check(cfg, model, fed, step_logits, gen, s, bar, label):
-        """The teacher-forced forward over ``fed``: the max abs logit error at
-        each predicted position, and the greedy tokens against its argmax
-        wherever its top-2 gap exceeds twice that error."""
-        with torch.no_grad():
-            full, _, _ = forward(cfg, model, fed, mode="train")
-        v = cfg.vocab_size
-        teacher = full[:, s - 1:, :v]
-        del full
-        err = (step_logits[..., :v] - teacher).abs().amax(dim=(0, 2))  # by position
-        top2 = torch.topk(teacher, 2, dim=-1).values
-        decisive = (top2[..., 0] - top2[..., 1]) > 2 * err[None, :]
-        want = torch.argmax(teacher, dim=-1).to(torch.int32)
-        agree = (want == gen) | ~decisive
-        n_pos = err.numel()
-        sample = " ".join(f"{t}: {float(err[t]):.2e}" for t in
-                          sorted({0, 1, 2, 4, 8, 16, 32, 64, 128, n_pos - 1}) if t < n_pos)
-        print(f"decode {label} teacher-forced check over {fed.shape[1]} tokens: max abs logit "
-              f"error {float(err.max()):.4e} (median {float(err.median()):.4e}; by predicted "
-              f"position {sample}); greedy == teacher argmax at {int((decisive & agree).sum())}"
-              f" of {int(decisive.sum())} decisive of {decisive.numel()} positions; tokens "
-              f"equal overall {int((want == gen).sum())} of {gen.numel()}")
-        if not bool(torch.isfinite(step_logits[..., :v]).all()):
-            fail(f"decode {label}: logits not finite")
-        if not bool(agree.all()):
-            fail(f"decode {label}: the greedy token differs from the teacher-forced argmax at "
-                 f"{int((~agree).sum())} decisive positions")
-        if float(err.max()) >= bar:
-            fail(f"decode {label}: max abs logit error {float(err.max())} >= {bar}")
 
     # ---------------------------------------------------------------- (1)
     cfg = get_config("tinyllama-1.1b")
     torch.cuda.reset_peak_memory_stats()
     model = init_params(cfg, 0)
     w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
-    tok = ByteTokenizer()
-    rows = []
-    for i in range(DECODE_BATCH):
-        t, _ = tok.encode_sentences(synthetic_document(300 + i, 80), DECODE_PROMPT)
-        if (t == 0).any():
-            fail(f"decode prompt {i} is shorter than {DECODE_PROMPT} byte tokens")
-        rows.append(t)
-    prompt = torch.tensor(np.stack(rows), device=dev)
+    prompt = byte_prompts(DECODE_BATCH, DECODE_PROMPT, dev)
     b, s, hd, n_l = DECODE_BATCH, DECODE_PROMPT, cfg.hd, cfg.n_layers
     max_len = s + DECODE_STEPS
     reset_counts()
@@ -1326,40 +1388,7 @@ def decode_phase(dev, reset_counts, counts, expect, launches) -> None:
     step = make_decode_step(cfg)
     tok_in = gen[:, :1].contiguous()
     pos = [torch.full((b, 1), s + i, device=dev) for i in range(8)]
-    torch.cuda.set_sync_debug_mode("warn")
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        step(model, tok_in, pos[0], cache)
-        torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("default")
-    syncs = sum("synchroniz" in str(w.message) for w in caught)
-
-    def profiled(fn, n: int) -> dict:
-        """``fn`` run n times under torch.profiler, the attention (over the
-        cache in decode, the chunked route in prefill) in a named span."""
-        originals = {name: getattr(attn, name) for name in ("_sdpa", "_sdpa_chunked")}
-
-        def span(f):
-            def wrapped(*a, **kw):
-                with record_function("decode.attention"):
-                    return f(*a, **kw)
-            return wrapped
-
-        try:
-            for name, f in originals.items():
-                setattr(attn, name, span(f))
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                for i in range(n):
-                    fn(i)
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-        finally:
-            for name, f in originals.items():
-                setattr(attn, name, f)
-        return decode_split(prof, wall, n)
-
+    syncs = host_syncs(lambda: step(model, tok_in, pos[0], cache))
     split = profiled(lambda i: step(model, tok_in, pos[i], cache), 8)
     prefill_step = make_prefill_step(cfg)
     p_split = profiled(lambda i: prefill_step(model, prompt, cache), 1)
@@ -1571,6 +1600,298 @@ def decode_phase(dev, reset_counts, counts, expect, launches) -> None:
     print(f"decode phase wall: {time.perf_counter() - t_phase:.1f} s")
 
 
+def byte_prompts(b: int, s: int, dev):
+    """B prompts of S byte tokens (``ByteTokenizer`` over
+    ``synthetic_document(300 + i, 80)``), (B, S) int32 on ``dev``."""
+    import torch
+
+    from repro_torch.data.synthetic import synthetic_document
+    from repro_torch.data.tokenizer import ByteTokenizer
+
+    tok, rows = ByteTokenizer(), []
+    for i in range(b):
+        t, _ = tok.encode_sentences(synthetic_document(300 + i, 80), s)
+        if (t == 0).any():
+            fail(f"decode prompt {i} is shorter than {s} byte tokens")
+        rows.append(t)
+    return torch.tensor(np.stack(rows), device=dev)
+
+
+def forward_flops(cfg, b: int, s: int, ctx: int = 0) -> float:
+    """FLOP of one forward over B x S new tokens at positions ctx .. ctx + S -
+    1, the least the function needs: 2 a multiply-add of every weight
+    matrix a token goes through (an MoE token through its top-k experts,
+    the shared one and the router; the embedding is a gather), causal
+    self-attention over the keys each query sees (4 H hd a pair, within
+    the window), cross-attention (q and o on the tokens, k and v on the
+    memory's T rows, 4 H hd a memory row a query), whisper's encoder over
+    its frames when ctx is 0 (the prefill), the recurrences' state update
+    and read (4 a state element a token), and the unembedding at every new
+    position."""
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    t, w, fam = cfg.n_frontend_tokens, cfg.sliding_window, cfg.family
+    n_tok = b * s
+    proj = d * (2 * h * hd + 2 * kv * hd)  # q, k, v, o
+    mlp = (3 if cfg.gated_mlp else 2) * d * cfg.d_ff
+    pairs = sum(min(ctx + i + 1, w or ctx + i + 1) for i in range(s))  # a row, a layer
+    attn = 4 * h * hd * pairs * b
+    cross = 2 * n_tok * 2 * d * h * hd + 2 * b * t * 2 * d * kv * hd + 4 * h * hd * t * n_tok
+    flops = 2 * n_tok * d * cfg.padded_vocab
+    if fam in ("dense", "moe", "encdec", "vlm"):
+        n_self = cfg.n_groups * (cfg.group_size - 1) if fam == "vlm" else cfg.n_layers
+        ffn = mlp
+        if cfg.moe:
+            m = cfg.moe
+            ffn = m.top_k * 3 * d * m.d_ff_expert + d * m.num_experts
+            ffn += (3 * d * m.d_ff_shared + d) if m.d_ff_shared else 0
+        flops += 2 * n_tok * n_self * (proj + ffn) + n_self * attn
+        if fam == "vlm":
+            flops += cfg.n_groups * (cross + 2 * n_tok * mlp)
+        if fam == "encdec":
+            flops += cfg.n_layers * cross
+            if ctx == 0:
+                flops += cfg.encoder_layers * (2 * b * t * (proj + mlp) + 4 * h * hd * b * t * t)
+    elif fam == "hybrid":
+        ssm = cfg.ssm
+        d_in = ssm.expand * d
+        heads = d_in // ssm.head_dim
+        mamba = d * (2 * d_in + 2 * ssm.d_state + heads) + d_in * d
+        flops += 2 * n_tok * (cfg.n_layers * mamba + cfg.n_groups * (proj + mlp))
+        flops += cfg.n_groups * attn + 4 * n_tok * cfg.n_layers * d_in * ssm.d_state
+    elif fam == "ssm":
+        d_in, f_ff = 2 * d, int(4 * d / 3 + 127) // 128 * 128
+        dh_m = d_in // h
+        mlstm = d * 2 * d_in + 3 * d_in * d_in + d_in * 2 * h + d_in * d
+        slstm = d * 4 * d + h * (d // h) * 4 * (d // h) + 2 * d * f_ff
+        n_m = cfg.n_groups * (cfg.group_size - 1)
+        flops += 2 * n_tok * (n_m * mlstm + cfg.n_groups * slstm)
+        flops += 4 * n_tok * n_m * h * dh_m * (dh_m + 1)
+    return float(flops)
+
+
+def step_bytes(cfg, model, cache, ctx: int, experts: float = 0.0) -> float:
+    """Bytes a decode step at position ctx must move: each weight it reads,
+    once (not the embedding table, of which it reads B rows, unless tied;
+    not whisper's encoder; of the routed experts only ``experts``, the
+    (layer, expert) pairs the step's tokens chose), and the cache it reads:
+    the valid k / v slots (positions 0 .. ctx, within the ring), the
+    recurrent states, positions and the memory whole."""
+    total, routed = 0, 0
+    for name, p in model.named_parameters():
+        if name.startswith("encoder.") or (name == "embed" and not cfg.tie_embeddings):
+            continue
+        if ".moe.w_" in name:
+            routed += p.numel() * p.element_size()
+        else:
+            total += p.numel() * p.element_size()
+    if cfg.moe:
+        total += experts * routed / (cfg.n_layers * cfg.moe.num_experts)
+
+    def walk(tree, key=""):
+        nonlocal total
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, k)
+            return
+        slots = tree.shape[-3] if key in ("k", "v") else 1
+        total += tree.numel() * tree.element_size() * min(ctx + 1, slots) // slots
+
+    walk(cache)
+    return float(total)
+
+
+def depth_phase(dev, reset_counts, counts, expect, launches) -> None:
+    """Phase 4h (4): every family that fits one card, at full width and
+    depth in bf16 (``init_params(cfg, 0)``), prefilled and decoded as (1)
+    decodes tinyllama, in DEPTH_FAMILIES' order, each released before the
+    next: B 4 prompts of 1,024 byte tokens (:func:`byte_prompts`; the vlm's
+    and whisper's frontends seeded N(0, 1) arrays of the registered length,
+    as in 4g), then 64 greedy ``make_decode_step`` steps, into
+    ``init_cache(cfg, 4, 1088)``.  Each prints (1)'s lines: the prefill wall
+    and tokens/s, ms a step (CUDA events, median and p99) and tokens/s, one
+    step's launches, host syncs and idle share (torch.profiler over 8 more
+    steps; sync debug mode), the cache's bytes, the peak memory, the bounds
+    (the prefill's :func:`forward_flops` over the bf16 peak; each step's
+    :func:`step_bytes` over HBM's rate, or its FLOP where that is longer)
+    and the teacher-forced check (:func:`teacher_check`), then one "decode
+    depth summary" JSON line with the card's name and power limit.
+
+    xlstm-1.3b: at the registered init its sLSTM is chaotic (PERF.md §7),
+    so there the check runs over a prompt of SLSTM_STEPS tokens and
+    SLSTM_STEPS steps; then r is redrawn at fan-in dh and the full workload
+    runs and is checked over all 1,088 tokens.  Its slstm_scan launches (one
+    a layer for each prefill, step and teacher-forced pass) are counted and
+    added to the ``kernels`` line.  qwen2-moe-a2.7b: held at the MoE bar of
+    0.5 (capacity drops differ between passes of 1,024, 1,088 and one token
+    a row); the prefill and the 64 steps are replayed with the routers
+    recorded, as is the teacher-forced pass: the dropped (token, choice)
+    pairs of each, and the decode's top-k expert sets equal to the teacher
+    pass's wherever neither pass dropped one of the token's choices and the
+    teacher's k-th router logit leads its (k + 1)-th by more than twice the
+    two passes' router logit error there.  Its step bound reads the experts
+    the step's tokens chose.  No family is cut: one that raises or runs out
+    of memory fails the phase."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.steps import make_decode_step
+    from repro_torch.models import decode_step, init_cache, init_params, prefill
+    from repro_torch.models import mlp as mlp_mod
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    b, s, steps = DEPTH_BATCH, DEPTH_PROMPT, DEPTH_STEPS
+    max_len = s + steps
+    prompt = byte_prompts(b, s, dev)
+    orig_route = mlp_mod._route
+    for name in DEPTH_FAMILIES:
+        t_fam = time.perf_counter()
+        cfg = get_config(name)
+        release()
+        torch.cuda.reset_peak_memory_stats()
+        model = init_params(cfg, 0)
+        w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+        frontend = None
+        if cfg.n_frontend_tokens:
+            frontend = torch.tensor(np.random.default_rng(0).standard_normal(
+                (b, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32),
+                device=dev).to(cfg.dtype)
+        n_slstm = cfg.n_groups if cfg.family == "ssm" else 0
+        label = f"{name} ({cfg.n_layers} layers, bf16"
+        sl = []
+        if n_slstm:
+            k = SLSTM_STEPS
+            reset_counts()
+            fed, lg, gen, *_ = greedy(cfg, model, prompt[:, :k], 2 * k, k,
+                                      label + f", registered init, S {k} + {k} steps)")
+            teacher_check(cfg, model, fed, lg, gen, k, float("inf"),
+                          label + ", registered init)")
+            sl.append(counts())
+            if sl[-1] != expect(slstm_scan=n_slstm * (2 + k + 1)):
+                fail(f"decode {name} at the registered init: launches {sl[-1]}")
+            dh = cfg.d_model // cfg.n_heads
+            for group in model.layers:
+                group.slstm.cell.r.mul_((cfg.n_heads / dh) ** 0.5)
+            label += ", sLSTM r at fan-in dh"
+            del fed, lg, gen
+        label += ")"
+        reset_counts()
+        fed, step_logits, gen, ms, t_prefill, t_decode, cache = greedy(
+            cfg, model, prompt, max_len, steps, label, frontend)
+        sl.append(counts())
+        if sl[-1] != expect(slstm_scan=n_slstm * (2 + steps)):
+            fail(f"decode {name}: launches {sl[-1]}; want one slstm_scan a sLSTM layer for "
+                 "each prefill and step, nothing else")
+        cache_bytes = tree_bytes(cache)
+        routes = []
+
+        def spy(p, c, x):
+            res = orig_route(p, c, x)
+            routes.append((res[1], res[3], x.to(torch.float32) @ p.router))
+            return res
+
+        if cfg.moe:
+            mlp_mod._route = spy
+        try:
+            reset_counts()
+            err = teacher_check(cfg, model, fed, step_logits, gen, s,
+                                0.5 if cfg.moe else float("inf"), label, frontend)
+            sl.append(counts())
+            if cfg.moe:
+                # The replay: the same prefill and steps, the routers recorded.
+                del cache
+                cache = init_cache(cfg, b, max_len)
+                with torch.no_grad():
+                    prefill(cfg, model, prompt, cache, frontend=frontend)
+                    for i in range(steps):
+                        decode_step(cfg, model, fed[:, s + i:s + i + 1],
+                                    torch.full((b, 1), s + i, device=dev), cache)
+        finally:
+            mlp_mod._route = orig_route
+        experts = [0.0] * steps
+        if cfg.moe:
+            n_l, e, top_k = cfg.n_layers, cfg.moe.num_experts, cfg.moe.top_k
+            if len(routes) != n_l * (2 + steps):
+                fail(f"decode {name}: {len(routes)} router calls, want {n_l * (2 + steps)}")
+            teach, pre, dec = routes[:n_l], routes[n_l:2 * n_l], routes[2 * n_l:]
+            drops = {k: int(sum(int((~kp).sum()) for _, kp, _ in calls))
+                     for k, calls in (("prefill", pre), ("decode", dec), ("teacher", teach))}
+            # (steps, layers, B, ...) of the decode; the teacher's at positions s ..
+            d_idx, d_keep, d_lg = (torch.stack([r[j][:, 0] for r in dec]).reshape(
+                steps, n_l, b, -1) for j in range(3))
+            t_idx, t_keep, t_lg = (torch.stack([r[j][:, s:s + steps] for r in teach]).permute(
+                2, 0, 1, 3) for j in range(3))
+            chosen = (F.one_hot(d_idx, e) * d_keep[..., None]).amax(dim=(2, 3))  # (steps, L, E)
+            experts = [float(x) for x in chosen.sum(dim=(1, 2))]
+            clean = d_keep.all(-1) & t_keep.all(-1)
+            top = torch.topk(t_lg, top_k + 1, dim=-1).values
+            lead = top[..., top_k - 1] - top[..., top_k]
+            sure = clean & (lead > 2 * (d_lg - t_lg).abs().amax(-1))
+            same = (d_idx.sort(-1).values == t_idx.sort(-1).values).all(-1)
+            n_sure, n_same = int(sure.sum()), int((same & sure).sum())
+            print(f"decode {label} routers: dropped (token, choice) pairs: prefill "
+                  f"{drops['prefill']} (cap {int(1.25 * top_k * s / e)}), decode {drops['decode']}"
+                  f" (cap 1), teacher-forced pass {drops['teacher']} (cap "
+                  f"{int(1.25 * top_k * (s + steps) / e)}); decode's expert sets equal to the "
+                  f"teacher's at {n_same} of {n_sure} decisive undropped (token, layer) pairs "
+                  f"(of {same.numel()}; {int((same & clean).sum())} of {int(clean.sum())} "
+                  f"undropped equal); experts a step read {min(experts):.0f}-{max(experts):.0f} "
+                  f"(mean {sum(experts) / steps:.1f}) of {n_l * e}")
+            if n_same != n_sure:
+                fail(f"decode {name}: the decode's routers chose other experts than the "
+                     f"teacher-forced pass at {n_sure - n_same} decisive undropped pairs")
+        p_flop = forward_flops(cfg, b, s)
+        p_bytes = w_bytes + cache_bytes + b * s * (4 + 4 * cfg.padded_vocab)
+        p_bound, p_by = bound_ms(p_flop, p_bytes, PEAK_BF16_FLOPS)
+        d_bytes = [step_bytes(cfg, model, cache, s + i, experts[i]) for i in range(steps)]
+        d_bounds = [bound_ms(forward_flops(cfg, b, 1, s + i), d_bytes[i], PEAK_BF16_FLOPS)
+                    for i in range(steps)]
+        d_mean = sum(x for x, _ in d_bounds) / steps
+        print(f"decode {label} bounds: prefill {p_flop / 1e12:.3f} TFLOP, {gb(p_bytes)}, "
+              f"{p_bound:.4f} ms ({p_by}), measured {t_prefill * 1e3 / p_bound:.2f}x; a step "
+              f"reads {gb(d_bytes[0])}-{gb(d_bytes[-1])} (weights but the embedding table"
+              + (" and the unchosen experts" if cfg.moe else "") + ", the valid cache), "
+              f"{d_bounds[0][0]:.4f}-{d_bounds[-1][0]:.4f} ms ({d_bounds[0][1]}; mean "
+              f"{d_mean:.4f}), median step {percentile(ms, 0.5) / d_mean:.2f}x; cache "
+              f"{gb(cache_bytes)} (B={b}, {max_len} slots); weights {gb(w_bytes)}; {card}")
+        # One step's launches, host syncs and device time: 8 more steps from
+        # position s (the cache's later slots are masked off; the recurrent
+        # states step on).
+        step = make_decode_step(cfg)
+        tok_in = gen[:, :1].contiguous()
+        pos = [torch.full((b, 1), s + i, device=dev) for i in range(8)]
+        reset_counts()
+        syncs = host_syncs(lambda: step(model, tok_in, pos[0], cache))
+        split = profiled(lambda i: step(model, tok_in, pos[i], cache), 8)
+        sl.append(counts())
+        if sl[-1] != expect(slstm_scan=n_slstm * 9):
+            fail(f"decode {name} profiled steps: launches {sl[-1]}")
+        peak = torch.cuda.max_memory_allocated()
+        print(f"decode {label} step profile (B={b}, positions {s}-{s + 7}): "
+              f"{json.dumps(split)}; host syncs of one step (sync debug mode): {syncs}; peak "
+              f"memory {gb(peak)}; {card}")
+        n_scan = sum(c["slstm_scan"] for c in sl)
+        launches["slstm_scan"] += n_scan
+        if n_slstm:
+            print(f"decode {label}: slstm_scan launches {n_scan}: {n_slstm} a prefill (cold and "
+                  f"warm) and a step ({steps} greedy, 9 profiled), {n_slstm} in each "
+                  f"teacher-forced pass, at the registered init {sl[0]['slstm_scan']}")
+        print("decode depth summary " + json.dumps({
+            "name": name, "card": card, "batch": b, "prompt": s, "steps": steps,
+            "prefill_ms": t_prefill * 1e3, "prefill_tokens_s": b * s / t_prefill,
+            "prefill_bound_ms": p_bound, "step_ms_median": percentile(ms, 0.5),
+            "step_ms_p99": percentile(ms, 0.99), "decode_tokens_s": b * steps / t_decode,
+            "step_bound_ms_mean": d_mean, "launches_a_step": split["launches_a_step"],
+            "host_syncs_a_step": split["host_syncs_a_step"], "host_syncs_debug": syncs,
+            "idle_share": split["idle_share"], "cache_bytes": cache_bytes,
+            "weights_bytes": w_bytes, "peak_memory_bytes": peak, "teacher_max_abs_err": err,
+            "slstm_scan_launches": n_scan, "wall_s": time.perf_counter() - t_fam}))
+        del model, cache, fed, gen, step_logits, frontend, routes, step, tok_in, pos
+        release()
+    print(f"decode depth phase wall: {time.perf_counter() - t_phase:.1f} s")
+
+
 def train_phase(dev, reset_counts, counts, expect, launches) -> None:
     """Phase 4i: the training scaffold on the card.
 
@@ -1616,7 +1937,6 @@ def train_phase(dev, reset_counts, counts, expect, launches) -> None:
     phase 4j reuses.
     """
     import copy
-    import gc
     import shutil
     import tempfile
 
@@ -1642,13 +1962,6 @@ def train_phase(dev, reset_counts, counts, expect, launches) -> None:
     from repro_torch.train.loop import LoopConfig, PreemptionError, train
 
     t_phase = time.perf_counter()
-
-    def gb(n: float) -> str:
-        return f"{n / 1e9:.3f} GB"
-
-    def release() -> None:
-        gc.collect()
-        torch.cuda.empty_cache()
 
     def parts(tree) -> list:
         return [(("/".join(path), i), t) for path, leaf in tree_items(tree)
@@ -2208,9 +2521,6 @@ def distributed_phase(dev, reset_counts, counts, expect, launches, train) -> Non
     from repro_torch.models import init_params
     from repro_torch.train import optimizer as opt
 
-    def gb(n: float) -> str:
-        return f"{n / 1e9:.3f} GB"
-
     t_phase = time.perf_counter()
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dist_"))
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
@@ -2384,8 +2694,11 @@ def slstm_phase(dev, launches, dry) -> list:
     (the recurrence is chaotic there, PERF.md §7); then r redrawn at fan-in
     dh (a contractive recurrence): hs, the final c, n, h, m and the saved
     pre-activations and states over all 2,048 steps, each within 2e-5
-    (rtol = atol).  (b) The backward kernel against
-    ``slstm_scan_backward_plain`` at B 2 x S 256, r at fan-in dh, from the
+    (rtol = atol); the decode launch (B 4, S 1, from the plain version's
+    state after 16 steps, at the registered init) within the same bar,
+    and its time.  (b) The backward kernel against
+    ``slstm_scan_backward_plain`` at B 2 x S 256 and at xlstm-1.3b's own
+    call, B 2 x S 2,048, r at fan-in dh, from the
     kernel's saved tensors and N(0, 1) gradients of hs and of the final
     state: d_wx (= d_pre), d_r (the per-head product outside) and d_bias,
     and the starting c, h, n's gradients, each within 1e-4 of its largest
@@ -2485,6 +2798,23 @@ def slstm_phase(dev, launches, dry) -> list:
         fail(f"slstm forward vs plain with r at fan-in dh: {bad} beyond {tol_fwd}: {errs}")
     err_fwd = max(err_first, errs["hs"])
     del got, want
+    # The decode launch (phase 4h (4)): B 4, S 1, from a nonzero state (the
+    # plain version's after 16 steps), at the registered init.
+    wx4 = (torch.randn((4, 17, d), generator=gen, device=dev) @ cell.w_in.to(torch.float32))
+    z4 = torch.zeros((4, d), device=dev)
+    st4 = ks.slstm_scan_plain(wx4[:, :16].contiguous(), r, bias, z4, z4 + 1e-6, z4.clone(),
+                              z4.clone())[1:5]
+    one = (wx4[:, 16:].contiguous(), r, bias, *st4)
+    got, want = ks.slstm_scan_cuda(*one)[:5], ks.slstm_scan_plain(*one)[:5]
+    errs4 = {k: max_err(g, w) for k, g, w in zip(names, got, want)}
+    step_ms = cuda_ms(lambda: ks.slstm_scan_cuda(*one), reps=50)
+    print(f"slstm forward vs plain, the decode launch (B 4, S 1, from the state after 16 steps; "
+          f"registered init): max abs err " + ", ".join(f"{k} {v:.3e}" for k, v in errs4.items())
+          + f" (bar {tol_fwd}); {step_ms * 1e3:.2f} us a launch (CUDA events, 50 back to back)")
+    if not all(torch.allclose(g, w, rtol=tol_fwd, atol=tol_fwd) for g, w in zip(got, want)):
+        fail(f"slstm forward vs plain at the decode launch: {errs4} beyond {tol_fwd}")
+    err_fwd = max(err_fwd, errs4["hs"])
+    del got, want, wx4, st4, one
 
     # ---------------------------------------------------------------- (b)
     def backward_case(wx_b, bb, ss):
@@ -2538,6 +2868,8 @@ def slstm_phase(dev, launches, dry) -> list:
         return (z, z + 1e-6, z.clone(), z.clone())
 
     err_bwd = backward_case(wx[:, :s_bwd].contiguous(), b, s_bwd)
+    # xlstm-1.3b's own call, B 2 x S 2,048, where (c) times the kernel.
+    err_bwd = max(err_bwd, backward_case(wx, b, s))
     # B 40: B x units a block past the kernel's 256 threads, so a cell
     # thread takes more than one row and a step more than one gather.
     x40 = torch.randn((40, 8, d), generator=gen, device=dev, dtype=torch.float32)
@@ -2619,6 +2951,7 @@ def slstm_phase(dev, launches, dry) -> list:
     return [
         {"name": "slstm_scan", **row, "launches": 0, "max_abs_err": err_fwd, "ms": fwd_ms,
          "ms_saving": save_ms, "us_a_step": fwd_ms * 1e3 / s, "chain_floor_ms": floor_ms,
+         "ms_decode_launch": step_ms,
          "split_ns": splits["forward"]["last"], "plain_ms": plain_fwd_ms,
          "bound_ms": f_ms, "bound_by": f_by},
         {"name": "slstm_scan_backward", **row, "launches": 0, "max_abs_err": err_bwd,
@@ -4060,6 +4393,7 @@ def main() -> None:
 
     # ------------------------------------------------------------ 4h. prefill and decode
     decode_phase(dev, reset_counts, counts, expect, launches)
+    depth_phase(dev, reset_counts, counts, expect, launches)
 
     # ------------------------------------------------------------ 4i. training
     train = train_phase(dev, reset_counts, counts, expect, launches)
