@@ -158,7 +158,7 @@ Phases, each of which must pass or the script exits non-zero:
      once to a temporary directory and restored bit for bit: ms a step,
      tokens/s, peak memory, checkpoint bytes and seconds, one step's
      launches, host syncs, idle share and split (chunked attention forward
-     and backward, optimizer, GEMMs, the rest) beside the bound; 8 steps on
+     and backward, optimizer, GEMMs, the rest) beside the bound; FIXED_STEPS steps on
      one batch, the loss falling; no kernel of the port launches (flash is
      not on the train path, and raises under grad); every registered config
      at full width in float32, one group, B 2 x 128, loss and every gradient
@@ -168,6 +168,22 @@ Phases, each of which must pass or the script exits non-zero:
      Ising fleet step (``make_ising_solve_step``: the batched trajectory and
      energy kernels, one launch each) at D 256 x R 32 x N 64 x 1,000 steps,
      energies exact, against its plain versions;
+  4i (2). training at full depth (``train_depth_phase``): (a) the paper's
+     encoder (sbert-paper, unreduced) trained as ``examples/train_tiny_lm.py
+     --full`` trains it, 200 ``train()`` steps of B 8 x 128 with a
+     checkpoint every 50, the last restored into a fresh model bit for bit,
+     then used as the summarizer's embedder (``BackboneEncoder`` ->
+     ``solve_es(solver="cobi")`` on the card, above 0.8 against exact
+     enumeration) and in ``EncoderStage(attn_impl="flash")`` against the
+     chunked route (cosine >= 0.999); (b) whisper-medium, zamba2-2.7b,
+     gemma-2b and xlstm-1.3b at full width and depth (bf16, B 8 x 2,048,
+     the registered microbatch and remat; xlstm with r at fan-in dh and
+     SR-rounded bf16 AdamW state), each checked part by part against central
+     differences in float32, remat on against off, its first loss against
+     the serving forward's cross-entropy, then FIXED_STEPS steps on
+     one batch (the loss falling), timed, profiled, its peak beside the
+     reckoning, bounded, a "train depth summary" line each; xlstm's sLSTM
+     launches counted;
   4j. the mesh and distributed layer (``distributed_phase``) on a one-rank
      NCCL group and a 1 x 1 ``DeviceMesh``: ``fleet_solve`` on one rank's
      shard of the dry run's 16 x 16 fleet cell (D 256 x R 32 x N 64 x 1,000
@@ -247,6 +263,7 @@ a CUDA device, or without the repository around it, it fails.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -315,10 +332,35 @@ DEPTH_BATCH, DEPTH_PROMPT, DEPTH_STEPS = 4, 1024, 64
 # Ising fleet step at one card's shard of the reference's ising-fleet cell
 # (D 4096 x R 512 x N 64 x 1,000 steps over a 16 x 16 mesh:
 # src/repro/launch/dryrun.py), and its check against the plain versions.
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, FIXED_STEPS = 8, 2048, 6, 8
+# FIXED_STEPS: the fixed-batch runs, tinyllama's here and each family's in
+# 4i (2) (timed there), kept short for the script's time limit: zamba2-2.7b
+# and xlstm-1.3b take seconds a step.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, FIXED_STEPS = 8, 2048, 6, 4
 GRAD_BATCH, GRAD_SEQ = 2, 128
 FLEET_DOCS, FLEET_READS, FLEET_SPINS, FLEET_STEPS = 256, 32, 64, 1000
 FLEET_CHECK_DOCS, FLEET_CHECK_STEPS = 4, 50
+# Phase 4i (2) (train depth): (a) the paper's encoder trained as
+# examples/train_tiny_lm.py --full trains it (sbert-paper, B 8 x 128, 200
+# steps, a checkpoint every 50), used as the summarizer's embedder; (b) the
+# families that fit one card, at full width and depth, FIXED_STEPS
+# steps of B 8 x 2,048 on one batch each; the per-part gradient check at B 1 x
+# S 256 in float32 (central differences of step DEPTH_DELTA x |loss| /
+# |g_part|: a loss change of 3e-4 of the loss each way, far above
+# float32's rounding of the loss and small enough that the curvature's
+# error stays below 1e-3 of the slope in the reduced models), remat on
+# against off at B 1 x S 512 in bf16.
+ENCODER_STEPS, ENCODER_CKPT_EVERY, ENCODER_BATCH, ENCODER_SEQ = 200, 50, 8, 128
+TRAIN_DEPTH_FAMILIES = ("whisper-medium", "zamba2-2.7b", "gemma-2b", "xlstm-1.3b")
+# The AdamW state's type a family trains with, settled by measurement
+# (PERF.md §6): xlstm-1.3b reckons 71.5 GB of weights, float32
+# accumulator, gradients and float32 state, and its step ran out of memory
+# in its backward on an NVIDIA H100 80GB HBM3 (700.00 W); with the
+# reference's SR-rounded bf16 state it reckons 50.1 GB.  The others keep
+# float32.
+TRAIN_DEPTH_STATE = {"whisper-medium": "float32", "zamba2-2.7b": "float32",
+                     "gemma-2b": "float32", "xlstm-1.3b": "bfloat16"}
+GRADCHECK_SEQ, REMAT_SEQ = 256, 512
+DEPTH_DELTA, GRADCHECK_TOL = 3e-4, 1e-2
 # Phase 4j (distributed): the sharded train step's loss against the
 # unsharded step's from the same weights and batch.
 SHARDED_LOSS_TOL = 1e-3
@@ -689,38 +731,60 @@ def flash_per_pass(cfg, s: int) -> int:
             "ssm": 0}[cfg.family]
 
 
-def moe_profile(prof, wall: float, kernel_names) -> dict:
-    """The device time of a profiled MoE pass split by where each kernel
-    ran: the ``moe.*`` regions that ``families_phase`` wraps around the
-    MoE's router, dispatch, expert products and combine leave spans on the
-    device's timeline (torch.profiler's GPU user annotations), and a kernel
-    that starts inside one belongs to it; flash by kernel name; the GEMMs
-    outside the experts; the rest.  Without spans, the split is by kernel
-    name only."""
+def is_gemm(name: str) -> bool:
+    """A device kernel of a matrix product, by name (cuBLAS, cuBLASLt and
+    CUTLASS kernels)."""
+    low = name.lower()
+    return any(x in low for x in ("gemm", "gemv", "nvjet", "xmma", "cutlass"))
+
+
+def kernel_regions(prof, prefix: str) -> tuple[list, list, int]:
+    """The device kernels of a torch.profiler run, each as (name, ms,
+    region): a span named ``prefix`` + region (a ``record_function`` span,
+    which leaves a GPU user annotation on the device's timeline) holds the
+    kernels that start inside it, and a kernel outside every span has
+    region None.  Read from the profiler's raw (kineto) events: building
+    its event tree takes minutes for the hundreds of thousands of kernels
+    of a train step.  Returns (kernels, spans as (start, end, region), the
+    host syncs: the runtime's stream and event synchronisations and
+    blocking copies)."""
     import bisect
 
     import torch
 
-    def is_gemm(name: str) -> bool:
-        low = name.lower()
-        return any(x in low for x in ("gemm", "nvjet", "xmma", "cutlass"))
-
     cuda = torch.autograd.DeviceType.CUDA
-    events = [ev for ev in prof.events() if ev.device_type == cuda]
-    spans = sorted((ev.time_range.start, ev.time_range.end, ev.name[4:])
-                   for ev in events if ev.name.startswith("moe."))
+    raw = [ev for ev in prof.profiler.kineto_results.events()
+           if not getattr(ev, "is_hidden_event", lambda: False)()]
+    syncs = sum(ev.name() in ("cudaStreamSynchronize", "cudaEventSynchronize", "cudaMemcpy")
+                for ev in raw)
+    device = [(ev.start_ns(), ev.duration_ns(), ev.name()) for ev in raw
+              if ev.device_type() == cuda]
+    spans = sorted((start, start + dur, name[len(prefix):]) for start, dur, name in device
+                   if name.startswith(prefix))
     starts = [sp[0] for sp in spans]
+    kernels = []
+    for start, dur, name in device:
+        if name.startswith(prefix):
+            continue
+        i = bisect.bisect_right(starts, start) - 1
+        region = spans[i][2] if i >= 0 and start < spans[i][1] else None
+        kernels.append((name, dur / 1e6, region))
+    return kernels, spans, syncs
+
+
+def moe_profile(prof, wall: float, kernel_names) -> dict:
+    """The device time of a profiled MoE pass split by where each kernel
+    ran (:func:`kernel_regions`): the ``moe.*`` regions that
+    ``families_phase`` wraps around the MoE's router, dispatch, expert
+    products and combine; flash by kernel name; the GEMMs outside the
+    experts; the rest.  Without spans, the split is by kernel name only."""
+    kernels, spans, _ = kernel_regions(prof, "moe.")
     by_name = {"flash": 0.0, "GEMMs": 0.0, "other": 0.0}
     split = dict.fromkeys(("expert GEMMs", "other GEMMs", "dispatch", "router", "flash",
                            "other"), 0.0)
-    for ev in events:
-        if ev.name.startswith("moe."):
-            continue
-        ms = ev.time_range.elapsed_us() / 1e3
-        flash, gemm = any(n in ev.name for n in kernel_names), is_gemm(ev.name)
+    for name, ms, region in kernels:
+        flash, gemm = any(n in name for n in kernel_names), is_gemm(name)
         by_name["flash" if flash else "GEMMs" if gemm else "other"] += ms
-        i = bisect.bisect_right(starts, ev.time_range.start) - 1
-        region = spans[i][2] if i >= 0 and ev.time_range.start < spans[i][1] else None
         split["flash" if flash
               else "expert GEMMs" if region == "experts" and gemm
               else "dispatch" if region in ("dispatch", "combine")
@@ -782,7 +846,7 @@ def families_phase(dev, reset_counts, counts, expect, launches, enc_docs, key) -
     import copy
 
     import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs.base import get_config
     from repro_torch.core import SolveConfig, metrics, solve_es
@@ -887,32 +951,19 @@ def families_phase(dev, reset_counts, counts, expect, launches, enc_docs, key) -
           f"{float(aux):.6f}")
 
     # One profiled pass of the 2048 group, the MoE's parts in named regions.
-    originals = {n: getattr(mlp_mod, n) for n in ("_route", "_dispatch", "_expert_ffn",
-                                                  "_combine")}
-
-    def region(label, fn):
-        def wrapped(*a, **kw):
-            with record_function(f"moe.{label}"):
-                return fn(*a, **kw)
-        return wrapped
-
     def run():
         return enc_serving._embed_batch(flash_cfg, model, tk, sg, 32)
 
     run()
     torch.cuda.synchronize()
-    try:
-        for n, label in (("_route", "route"), ("_dispatch", "dispatch"),
-                         ("_expert_ffn", "experts"), ("_combine", "combine")):
-            setattr(mlp_mod, n, region(label, originals[n]))
+    with spanned([(mlp_mod, "_route", "route"), (mlp_mod, "_dispatch", "dispatch"),
+                  (mlp_mod, "_expert_ffn", "experts"), (mlp_mod, "_combine", "combine")],
+                 prefix="moe."):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             run()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-    finally:
-        for n, fn in originals.items():
-            setattr(mlp_mod, n, fn)
     split = moe_profile(prof, wall, fa.KERNEL_NAMES)
     warm = cuda_ms(run, reps=3, warmup=1)
     print(f"qwen2-moe profile, 2048 group (B={b_pad}): {json.dumps(split)}; the same pass "
@@ -1023,9 +1074,10 @@ def families_phase(dev, reset_counts, counts, expect, launches, enc_docs, key) -
     # fan-in dh (a contractive recurrence), over all 256.
     tokens = torch.tensor(np.stack([tok.encode_sentences(d, 256)[0] for _, d, _ in docs]))
     seen = []
+    orig_route = mlp_mod._route
 
     def spy(p, c, x):
-        res = originals["_route"](p, c, x)
+        res = orig_route(p, c, x)
         seen.append(res[1].cpu())
         return res
 
@@ -1044,7 +1096,7 @@ def families_phase(dev, reset_counts, counts, expect, launches, enc_docs, key) -
                 if where == "card":  # the float32 flash calls: the split-TF32 kernel's
                     flash = add_flash_launches(launches, counts(), "tf32")
         finally:
-            mlp_mod._route = originals["_route"]
+            mlp_mod._route = orig_route
         (h_card, idx_card, w_card), (h_cpu, idx_cpu, w_cpu) = got["card"], got["cpu"]
         err_t = (h_card - h_cpu).abs().amax(dim=(0, 2))  # by step
         same_idx = len(idx_card) == len(idx_cpu) and all(
@@ -1100,37 +1152,84 @@ def decode_split(prof, wall: float, n_steps: int, prefix: str = "decode.",
     softmax attention: the GQA repeat, products, mask, softmax; train also
     ``optimizer``), else GEMMs by kernel name, else the rest (norms, RoPE,
     the cache write, activations, residuals, casts, the logits' mask)."""
-    import bisect
-
-    import torch
-
-    cuda = torch.autograd.DeviceType.CUDA
-    events = [ev for ev in prof.events() if ev.device_type == cuda]
-    spans = sorted((ev.time_range.start, ev.time_range.end, ev.name[len(prefix):])
-                   for ev in events if ev.name.startswith(prefix))
-    starts = [sp[0] for sp in spans]
+    kernels, spans, syncs = kernel_regions(prof, prefix)
     split = dict.fromkeys((*regions, "GEMMs", "other"), 0.0)
-    syncs = sum(ev.name in ("cudaStreamSynchronize", "cudaEventSynchronize", "cudaMemcpy")
-                for ev in prof.events())
-    kernels = 0
-    for ev in events:
-        if ev.name.startswith(prefix):
-            continue
-        kernels += 1
-        ms = ev.time_range.elapsed_us() / 1e3
-        i = bisect.bisect_right(starts, ev.time_range.start) - 1
-        region = spans[i][2] if i >= 0 and ev.time_range.start < spans[i][1] else None
-        low = ev.name.lower()
-        gemm = any(x in low for x in ("gemm", "gemv", "nvjet", "xmma", "cutlass"))
-        split[region if region in regions else "GEMMs" if gemm else "other"] += ms
+    for name, ms, region in kernels:
+        split[region if region in regions else "GEMMs" if is_gemm(name) else "other"] += ms
     busy = sum(split.values())
     return {"steps": n_steps, "wall_ms_a_step": wall * 1e3 / n_steps,
-            "busy_ms_a_step": busy / n_steps, "launches_a_step": kernels / n_steps,
+            "busy_ms_a_step": busy / n_steps, "launches_a_step": len(kernels) / n_steps,
             "host_syncs_a_step": syncs / n_steps,
             "idle_share": 1 - busy / (wall * 1e3) if busy > 0 else None,
             "spans": {r: sum(sp[2] == r for sp in spans) for r in regions},
             "split_ms_a_step": ({k: v / n_steps for k, v in split.items()} if spans
                                 else "not measured (no region spans on the device)")}
+
+
+@contextlib.contextmanager
+def spanned(patches, prefix: str = "train."):
+    """Each ``(module, attribute, region)`` of ``patches`` wrapped, for the
+    block, so that its device kernels fall in a span named ``prefix`` +
+    region (:func:`kernel_regions`): its forward, and its recomputation
+    under remat, inside ``record_function``; its backward between identity
+    autograd nodes around it, one on its first output that opens the span
+    when that output's gradient arrives and one on its tensor inputs that
+    closes it when theirs are computed (the engine runs a function's
+    backward nodes between the two)."""
+    import torch
+    from torch.profiler import record_function
+
+    open_spans = []
+
+    class Open(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, out, name):
+            ctx.name = name
+            return out.view_as(out)
+
+        @staticmethod
+        def backward(ctx, g):
+            rf = record_function(ctx.name)
+            rf.__enter__()
+            open_spans.append(rf)
+            return g, None
+
+    class Close(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, *xs):
+            return tuple(x.view_as(x) for x in xs)
+
+        @staticmethod
+        def backward(ctx, *gs):
+            if open_spans:
+                open_spans.pop().__exit__(None, None, None)
+            return gs
+
+    def wrap(f, name):
+        def wrapped(*args, **kw):
+            args = list(args)
+            grad_in = [i for i, a in enumerate(args)
+                       if isinstance(a, torch.Tensor) and a.requires_grad]
+            if grad_in:
+                for i, x in zip(grad_in, Close.apply(*(args[i] for i in grad_in))):
+                    args[i] = x
+            with record_function(name):
+                out = f(*args, **kw)
+            first = out[0] if isinstance(out, tuple) else out
+            if isinstance(first, torch.Tensor) and first.requires_grad:
+                first = Open.apply(first, name)
+                out = (first, *out[1:]) if isinstance(out, tuple) else first
+            return out
+        return wrapped
+
+    originals = [(module, attr, getattr(module, attr)) for module, attr, _ in patches]
+    try:
+        for module, attr, region in patches:
+            setattr(module, attr, wrap(getattr(module, attr), prefix + region))
+        yield
+    finally:
+        for module, attr, f in originals:
+            setattr(module, attr, f)
 
 
 def gb(n: float) -> str:
@@ -1244,21 +1343,12 @@ def profiled(fn, n: int) -> dict:
     in decode, the chunked route in prefill) in a named span:
     :func:`decode_split` of the run."""
     import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import attention as attn
 
-    originals = {name: getattr(attn, name) for name in ("_sdpa", "_sdpa_chunked")}
-
-    def span(f):
-        def wrapped(*a, **kw):
-            with record_function("decode.attention"):
-                return f(*a, **kw)
-        return wrapped
-
-    try:
-        for name, f in originals.items():
-            setattr(attn, name, span(f))
+    with spanned([(attn, "_sdpa", "attention"), (attn, "_sdpa_chunked", "attention")],
+                 prefix="decode."):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1266,9 +1356,6 @@ def profiled(fn, n: int) -> dict:
                 fn(i)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-    finally:
-        for name, f in originals.items():
-            setattr(attn, name, f)
     return decode_split(prof, wall, n)
 
 
@@ -1892,6 +1979,64 @@ def depth_phase(dev, reset_counts, counts, expect, launches) -> None:
     print(f"decode depth phase wall: {time.perf_counter() - t_phase:.1f} s")
 
 
+def tree_parts(tree) -> list:
+    """A parameter or state tree's tensors as ((path, index), tensor) pairs,
+    in the reference's flatten order."""
+    from repro_torch.models.common import leaf_parts, tree_items
+
+    return [(("/".join(path), i), t) for path, leaf in tree_items(tree)
+            for i, t in enumerate(leaf_parts(leaf))]
+
+
+def differing(a, b) -> list:
+    """The parts where two trees differ in type or bits."""
+    import torch
+
+    pa, pb = tree_parts(a), tree_parts(b)
+    if [k for k, _ in pa] != [k for k, _ in pb]:
+        fail("train: two trees of different structure")
+    return [k for (k, x), (_, y) in zip(pa, pb) if x.dtype != y.dtype or not torch.equal(x, y)]
+
+
+def timed_steps(step, log: list):
+    """``step`` (a train step) with CUDA events recorded around each call:
+    each call appends ((start, end), its metrics) to ``log``."""
+    import torch
+
+    def timed(*args):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = step(*args)
+        ev[1].record()
+        log.append((ev, out[2]))
+        return out
+    return timed
+
+
+@contextlib.contextmanager
+def timed_saves():
+    """``train.checkpoint.save`` timed for the block: yields the list that
+    each save appends (seconds, bytes written) to."""
+    import torch
+
+    from repro_torch.train import checkpoint as ckpt
+
+    saves, orig = [], ckpt.save
+
+    def timed_save(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = orig(*a, **kw)
+        saves.append((time.perf_counter() - t0, sum(f.stat().st_size for f in path.iterdir())))
+        return path
+
+    ckpt.save = timed_save
+    try:
+        yield saves
+    finally:
+        ckpt.save = orig
+
+
 def train_phase(dev, reset_counts, counts, expect, launches) -> None:
     """Phase 4i: the training scaffold on the card.
 
@@ -1941,7 +2086,7 @@ def train_phase(dev, reset_counts, counts, expect, launches) -> None:
     import tempfile
 
     import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import prng
     from repro_torch.configs import REGISTRY
@@ -1956,23 +2101,11 @@ def train_phase(dev, reset_counts, counts, expect, launches) -> None:
     from repro_torch.models import attention as attn
     from repro_torch.models import init_params, param_tree, train_loss
     from repro_torch.models import mlp as mlp_mod
-    from repro_torch.models.common import leaf_parts, tree_items
     from repro_torch.train import checkpoint as ckpt
     from repro_torch.train import optimizer as opt
     from repro_torch.train.loop import LoopConfig, PreemptionError, train
 
     t_phase = time.perf_counter()
-
-    def parts(tree) -> list:
-        return [(("/".join(path), i), t) for path, leaf in tree_items(tree)
-                for i, t in enumerate(leaf_parts(leaf))]
-
-    def differing(a, b) -> list:
-        """The parts where two trees differ in type or bits."""
-        pa, pb = parts(a), parts(b)
-        if [k for k, _ in pa] != [k for k, _ in pb]:
-            fail("train: two trees of different structure")
-        return [k for (k, x), (_, y) in zip(pa, pb) if x.dtype != y.dtype or not torch.equal(x, y)]
 
     # ---------------------------------------------------------------- (a)
     cfg = get_config("tinyllama-1.1b")
@@ -1984,47 +2117,27 @@ def train_phase(dev, reset_counts, counts, expect, launches) -> None:
     n_params = sum(p.numel() for p in model.parameters())
     w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
     s_bytes = sum(t.numel() * t.element_size() for name in ("master", "mu", "nu")
-                  for _, t in parts(state[name]))
+                  for _, t in tree_parts(state[name]))
     data = SyntheticTextTask(DataConfig(batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ),
                              cfg.vocab_size)
     tokens_a_step = TRAIN_BATCH * TRAIN_SEQ
     step = tsteps.make_train_step(cfg, opt.OptConfig(total_steps=TRAIN_STEPS))
-    timed, metrics = [], []
-
-    def timed_step(m, st, batch):
-        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-        ev[0].record()
-        out = step(m, st, batch)
-        ev[1].record()
-        timed.append(ev)
-        metrics.append(out[2])
-        return out
-
+    timed = []
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
-    saves = []
-    orig_save = ckpt.save
-
-    def timed_save(*a, **kw):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        path = orig_save(*a, **kw)
-        saves.append((time.perf_counter() - t0, sum(f.stat().st_size for f in path.iterdir())))
-        return path
-
     print(f"train tinyllama-1.1b: {n_params / 1e9:.4f} B parameters, weights {gb(w_bytes)} "
           f"(bf16), AdamW state {gb(s_bytes)} (float32), microbatch {cfg.microbatch}, remat "
           f"{cfg.remat}, attn_impl {cfg.attn_impl} (chunk {cfg.attn_chunk}); B {TRAIN_BATCH} x "
           f"S {TRAIN_SEQ} ({tokens_a_step} tokens a step); checkpoint dir free "
           f"{gb(shutil.disk_usage(tmp).free)}")
-    ckpt.save = timed_save
     try:
         reset_counts()
         t0 = time.perf_counter()
-        model, state, history = train(
-            cfg, timed_step, model, state, data,
-            LoopConfig(total_steps=TRAIN_STEPS, ckpt_every=TRAIN_STEPS, ckpt_dir=str(tmp),
-                       keep=1, log_every=1),
-            log=lambda line: print(f"train tinyllama-1.1b {line}"))
+        with timed_saves() as saves:
+            model, state, history = train(
+                cfg, timed_steps(step, timed), model, state, data,
+                LoopConfig(total_steps=TRAIN_STEPS, ckpt_every=TRAIN_STEPS, ckpt_dir=str(tmp),
+                           keep=1, log_every=1),
+                log=lambda line: print(f"train tinyllama-1.1b {line}"))
         torch.cuda.synchronize()
         t_train = time.perf_counter() - t0
         c = counts()
@@ -2032,10 +2145,10 @@ def train_phase(dev, reset_counts, counts, expect, launches) -> None:
             fail(f"train tinyllama-1.1b: kernels of the port launched {c}; the train path has none")
         peak = torch.cuda.max_memory_allocated()
         losses = [h["loss"] for h in history]
-        norms = [float(m["grad_norm"]) for m in metrics]
+        norms = [float(m["grad_norm"]) for _, m in timed]
         if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses + norms):
             fail(f"train tinyllama-1.1b: losses {losses}, grad norms {norms}")
-        ms = [a.elapsed_time(e) for a, e in timed]
+        ms = [a.elapsed_time(e) for (a, e), _ in timed]
         if len(saves) != 1 or ckpt.steps_available(tmp) != [TRAIN_STEPS]:
             fail(f"train tinyllama-1.1b: {len(saves)} saves, checkpoints "
                  f"{ckpt.steps_available(tmp)}; want one, at step {TRAIN_STEPS}")
@@ -2051,7 +2164,6 @@ def train_phase(dev, reset_counts, counts, expect, launches) -> None:
         del back
         release()
     finally:
-        ckpt.save = orig_save
         shutil.rmtree(tmp, ignore_errors=True)
     med = percentile(ms[1:], 0.5)
     print(f"train tinyllama-1.1b: {TRAIN_STEPS} steps through train() in {t_train:.2f} s; "
@@ -2063,55 +2175,12 @@ def train_phase(dev, reset_counts, counts, expect, launches) -> None:
           f"({ck_bytes / t_save / 1e9:.2f} GB/s), restore to the card {t_restore:.2f} s "
           f"({ck_bytes / t_restore / 1e9:.2f} GB/s); restored == live, every leaf bit for bit")
 
-    # One more step under the profiler: the chunked attention in spans
-    # forward (and in its recomputation under remat) and, through identity
-    # autograd nodes around it, backward (the engine runs an attention's
-    # backward nodes between its output's node and its inputs'); the
+    # One more step under the profiler: the attention in spans forward, in
+    # its recomputation under remat and backward (:func:`spanned`), the
     # optimizer's update in a span.
-    originals = {"_sdpa_chunked": attn._sdpa_chunked, "_sdpa": attn._sdpa}
-    orig_apply = opt.apply_updates
-    open_spans = []
-
-    class Open(torch.autograd.Function):
-        @staticmethod
-        def forward(ctx, out):
-            return out.view_as(out)
-
-        @staticmethod
-        def backward(ctx, g):
-            rf = record_function("train.attention")
-            rf.__enter__()
-            open_spans.append(rf)
-            return g
-
-    class Close(torch.autograd.Function):
-        @staticmethod
-        def forward(ctx, q, k, v):
-            return q.view_as(q), k.view_as(k), v.view_as(v)
-
-        @staticmethod
-        def backward(ctx, gq, gk, gv):
-            if open_spans:
-                open_spans.pop().__exit__(None, None, None)
-            return gq, gk, gv
-
-    def span(f):
-        def wrapped(q, k, v, *a, **kw):
-            q, k, v = Close.apply(q, k, v)
-            with record_function("train.attention"):
-                out = f(q, k, v, *a, **kw)
-            return Open.apply(out)
-        return wrapped
-
-    def apply_in_span(*a, **kw):
-        with record_function("train.optimizer"):
-            return orig_apply(*a, **kw)
-
     batch = data.batch(TRAIN_STEPS)
-    try:
-        for name, f in originals.items():
-            setattr(attn, name, span(f))
-        opt.apply_updates = apply_in_span
+    with spanned([(attn, "_sdpa_chunked", "attention"), (attn, "_sdpa", "attention"),
+                  (opt, "apply_updates", "optimizer")]):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2119,10 +2188,6 @@ def train_phase(dev, reset_counts, counts, expect, launches) -> None:
             loss = float(m["loss"])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-    finally:
-        for name, f in originals.items():
-            setattr(attn, name, f)
-        opt.apply_updates = orig_apply
     t0 = time.perf_counter()
     split = decode_split(prof, wall, 1, prefix="train.", regions=("attention", "optimizer"))
     del prof
@@ -2181,7 +2246,7 @@ def train_phase(dev, reset_counts, counts, expect, launches) -> None:
         "split_ms": split["split_ms_a_step"], "checkpoint_bytes": ck_bytes,
         "save_s": t_save, "restore_s": t_restore, "losses": losses,
         "fixed_batch_losses": fixed_losses}))
-    del model, fixed_state, metrics, timed
+    del model, fixed_state, timed
     release()
 
     walls_by_part = {"a": time.perf_counter() - t_phase}
@@ -2200,7 +2265,7 @@ def train_phase(dev, reset_counts, counts, expect, launches) -> None:
         """(loss + aux, loss, the gradient of every part, the routers'
         choices) of train_loss on device d."""
         seen.clear()
-        leaves = [t for _, t in parts(param_tree(m))]
+        leaves = [t for _, t in tree_parts(param_tree(m))]
         with tsteps._trainable(leaves):
             total, loss = train_loss(cfg, m, {k: v.to(d) for k, v in batch.items()})
             grads = list(torch.autograd.grad(total, leaves))
@@ -2220,7 +2285,7 @@ def train_phase(dev, reset_counts, counts, expect, launches) -> None:
         # Compared on the card: an expert stack's gradients are GBs, and
         # elementwise passes over them on the host take longer than the
         # gradients themselves.
-        names = [k for k, _ in parts(param_tree(host))]
+        names = [k for k, _ in tree_parts(param_tree(host))]
         errs, bad = [], []
         for key, a, b in zip(names, got[2], want[2]):
             b = b.to(dev)
@@ -2294,9 +2359,9 @@ def train_phase(dev, reset_counts, counts, expect, launches) -> None:
             for m in (card, host):
                 st = opt.init(m)
                 _, st, met = tsteps.make_train_step(cfg, ocfg)(m, st, batch)
-                outs.append(([t.cpu() for _, t in parts(param_tree(m))],
+                outs.append(([t.cpu() for _, t in tree_parts(param_tree(m))],
                              [t.cpu() for key in ("master", "mu", "nu")
-                              for _, t in parts(st[key])],
+                              for _, t in tree_parts(st[key])],
                              float(met["lr"]), float(met["loss"])))
             (w_a, s_a, lr_a, l_a), (w_b, s_b, lr_b, l_b) = outs
             err_w = max(float((a - b).abs().max()) for a, b in zip(w_a, w_b))
@@ -2353,7 +2418,7 @@ def train_phase(dev, reset_counts, counts, expect, launches) -> None:
 
         def diff(a, b) -> float:
             return max(float((x.float() - y.float()).abs().max())
-                       for (_, x), (_, y) in zip(parts(trees(a)), parts(trees(b))))
+                       for (_, x), (_, y) in zip(tree_parts(trees(a)), tree_parts(trees(b))))
 
         straight = [mini(tmp / f"straight{i}") for i in range(3)]
         try:
@@ -2479,6 +2544,477 @@ def train_phase(dev, reset_counts, counts, expect, launches) -> None:
           + ", ".join(f"({k}) {v:.1f} s" for k, v in walls_by_part.items()) + ")")
     return {"h_s": h_s, "j_s": j_s, "step_ms": med,
             "launches_a_step": split["launches_a_step"]}
+
+
+def model_parts(cfg, model) -> list:
+    """The parts whose gradients the depth check holds one by one, as
+    (label, parameters): the embeddings, each encoder block and the
+    encoder's norm (encdec), each group, the shared block (hybrid), and the
+    head (the final norm and the unembedding; with tied embeddings the
+    final norm).  Every parameter is in exactly one part."""
+    parts = [("embeddings", [model.embed])]
+    if cfg.family == "encdec":
+        parts += [(f"encoder block {j}", list(b.parameters()))
+                  for j, b in enumerate(model.encoder.blocks)]
+        parts.append(("encoder norm", list(model.encoder.norm.parameters())))
+    parts += [(f"group {i}", list(g.parameters())) for i, g in enumerate(model.layers)]
+    if model.shared is not None:
+        parts.append(("shared block", list(model.shared.parameters())))
+    parts.append(("head", list(model.final_norm.parameters())
+                   + ([] if cfg.tie_embeddings else [model.unembed])))
+    ids = [id(p) for _, ps in parts for p in ps]
+    if len(set(ids)) != len(ids) or set(ids) != {id(p) for p in model.parameters()}:
+        fail(f"{cfg.name}: the parts do not cover each parameter once")
+    return parts
+
+
+def train_depth_phase(dev, reset_counts, counts, expect, launches, enc_docs) -> None:
+    """Phase 4i (2): training at full depth on the card.
+
+    (a) The paper's encoder trained end to end, as ``examples/train_tiny_lm.py
+    --full --arch sbert-paper`` runs it: ``get_config("sbert-paper")``
+    unreduced (12 layers, d 768, bf16, remat, microbatch 1),
+    ``init_params(cfg, 0)``, ``opt.init``, ``make_train_step(cfg,
+    OptConfig(peak_lr=3e-3, warmup_steps=20, total_steps=200))`` on
+    ``SyntheticTextTask(DataConfig(8, 128))`` through ``train()`` for 200
+    steps with a checkpoint every 50 into a temporary directory that the
+    phase deletes: the first and last loss (the last below the first), ms a
+    step (CUDA events), each checkpoint's bytes and seconds; the last
+    checkpoint restored into a fresh model, equal to the live weights and
+    state bit for bit; that model in ``BackboneEncoder(max_len=512)``
+    embeds ``synthetic_document(3, 16)``, ``problem_from_sentences(m=5,
+    lam=0.5)`` and ``solve_es(SolveConfig(solver="cobi", iterations=4,
+    reads=8, int_range=14))`` on the card (the COBI and energy kernels):
+    the selection and its objective normalized against exact enumeration
+    (C(16, 5) = 4,368), above 0.8; then ``EncoderStage(attn_impl="flash")``
+    on phase 4d's ten documents against the chunked route (``"auto"``),
+    sentence cosine >= 0.999.
+
+    (b) TRAIN_DEPTH_FAMILIES at full width and depth, in that order, each
+    released before the next: ``init_params(cfg, 0)`` (bf16, the registered
+    microbatch and remat), 4i (b)'s stub frontends (N(0, 1) frames), the
+    state type of TRAIN_DEPTH_STATE.  xlstm: its registered init is chaotic
+    (the non-finite elements of its bf16 gradients at B 1 x S 512 are
+    counted and printed), so r is redrawn at fan-in dh, as 4h and 4i do,
+    before the checks and the steps.  Before the first step, on the same
+    weights: (1) the gradient check: a float32 copy of the model, TF32 off,
+    B 1 x S 256; for each part of :func:`model_parts` the central difference
+    (f(w + eps u) - f(w - eps u)) / 2 eps along u = g_part / |g_part| must
+    lie within GRADCHECK_TOL of |g_part| (relative), eps = DEPTH_DELTA x
+    |f(w)| / |g_part|; the noise of a repeated forward printed; (2) remat
+    on against off at B 1 x S 512 in bf16: every gradient bit for bit, or,
+    if two runs with remat on differ, within twice their spread; (3) the
+    serving forward's cross-entropy (``forward``, no grad, no remat, each
+    microbatch's mean averaged as the step averages them) on the fixed
+    batch.  Then FIXED_STEPS steps of ``make_train_step`` (``OptConfig(
+    warmup_steps=1)``) on that one batch of B 8 x 2,048
+    (``SyntheticTextTask`` batch 0): each step's ms (CUDA events), loss and
+    grad norm (all finite), the warm median and tokens/s; (3) the first
+    loss equal to the serving cross-entropy within bf16's unit roundoff
+    (2^-8, relative); (4) the last loss below the first; the reckoned bytes
+    (weights, the float32 accumulator, the gradients autograd returns at
+    once, the state) beside the measured peak; one more step under
+    torch.profiler (launches, host syncs, idle share, the device time split
+    into attention, the family's scan (Mamba2's SSD and the mLSTM's chunked
+    scan, the sLSTM op), the optimizer, GEMMs and the rest); the bound (3 x
+    ``forward_flops(cfg, 8, 2048)`` over the bf16 peak, plus the optimizer's
+    bytes over HBM's rate) and the step's share of it; one "train depth
+    summary" JSON line.  xlstm's steps launch ``slstm_scan_forward`` 48
+    times (6 layers x 4 microbatches x forward and recompute) and
+    ``slstm_scan_backward`` 24 times a step; every launch of the phase is
+    counted into the ``kernels`` line.  No family is cut and none falls
+    back: out of memory or a failed check fails the phase.
+    """
+    import copy
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import prng
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import SolveConfig, metrics, solve_es
+    from repro_torch.data.pipeline import DataConfig, SyntheticTextTask
+    from repro_torch.data.synthetic import synthetic_document
+    from repro_torch.embeddings import BackboneEncoder, EncoderStage, problem_from_sentences
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.models import attention as attn
+    from repro_torch.models import forward, init_params, param_tree, ssd, train_loss, xlstm
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.loop import LoopConfig, train
+
+    t_phase = time.perf_counter()
+    card = card_line()
+
+    # ---------------------------------------------------------------- (a)
+    cfg = get_config("sbert-paper")
+    reset_counts()
+    model = init_params(cfg, 0)
+    state = opt.init(model)
+    n_params = sum(p.numel() for p in model.parameters())
+    step = tsteps.make_train_step(cfg, opt.OptConfig(peak_lr=3e-3, warmup_steps=20,
+                                                     total_steps=ENCODER_STEPS))
+    data = SyntheticTextTask(DataConfig(ENCODER_BATCH, ENCODER_SEQ), cfg.vocab_size)
+    timed = []
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_encoder_"))
+    try:
+        t0 = time.perf_counter()
+        with timed_saves() as saves:
+            model, state, history = train(
+                cfg, timed_steps(step, timed), model, state, data,
+                LoopConfig(total_steps=ENCODER_STEPS, ckpt_every=ENCODER_CKPT_EVERY,
+                           ckpt_dir=str(tmp), log_every=ENCODER_CKPT_EVERY),
+                log=lambda line: print(f"train depth sbert-paper {line}"))
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        ms = [a.elapsed_time(e) for (a, e), _ in timed]
+        losses = [h["loss"] for h in history]
+        kept = ckpt.steps_available(tmp)
+        want_saves = ENCODER_STEPS // ENCODER_CKPT_EVERY
+        if len(saves) != want_saves or kept[-1] != ENCODER_STEPS:
+            fail(f"train depth sbert-paper: {len(saves)} saves, checkpoints {kept}")
+        fresh = init_params(cfg, 1)
+        t0 = time.perf_counter()
+        back = ckpt.restore(tmp, ENCODER_STEPS, {"params": fresh, "opt": opt.init(fresh)},
+                            cfg=cfg)
+        trained = ckpt.load_params(fresh, back["params"])
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        if differing(param_tree(trained), param_tree(model)) or differing(back["opt"], state):
+            fail("train depth sbert-paper: the restored weights or state differ from the live "
+                 "ones")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if len(losses) != ENCODER_STEPS or not all(math.isfinite(x) for x in losses) \
+            or losses[-1] >= losses[0]:
+        fail(f"train depth sbert-paper: losses {losses[0]} -> {losses[-1]}")
+    c = counts()
+    if c != expect():
+        fail(f"train depth sbert-paper: kernels of the port launched {c} in training")
+    print(f"train depth sbert-paper: {n_params / 1e9:.4f} B parameters, {cfg.n_layers} layers, "
+          f"d {cfg.d_model}, bf16, remat {cfg.remat}, microbatch {cfg.microbatch}; "
+          f"{ENCODER_STEPS} steps of B {ENCODER_BATCH} x S {ENCODER_SEQ} through train() in "
+          f"{t_train:.2f} s; loss {losses[0]:.4f} -> {losses[-1]:.4f}; ms a step (CUDA events) "
+          f"first {ms[0]:.2f}, median {percentile(ms[1:], 0.5):.2f}, p99 "
+          f"{percentile(ms[1:], 0.99):.2f}, last {ms[-1]:.2f}; checkpoints at "
+          f"{ENCODER_CKPT_EVERY}-step intervals: "
+          + ", ".join(f"{gb(n)} in {t:.2f} s" for t, n in saves)
+          + f"; kept {kept}; restored into a fresh model in {t_restore:.2f} s, weights and "
+          f"state equal to the live ones bit for bit; {card}")
+
+    # The trained encoder as the summarizer's embedder, on the card.
+    sents = synthetic_document(3, 16)
+    enc = BackboneEncoder(cfg, trained, max_len=512)
+    problem = problem_from_sentences(sents, m=5, lam=0.5, encoder=enc)
+    reset_counts()
+    rep = solve_es(problem, prng.key(1), SolveConfig(solver="cobi", iterations=4, reads=8,
+                                                     int_range=14))
+    c = counts()
+    if c != expect(cobi_trajectory=4, ising_energy=4):
+        fail(f"train depth sbert-paper summary: launches {c}")
+    for name in c:
+        launches[name] += c[name]
+    bounds = metrics.reference_bounds(problem)
+    score = float(metrics.normalized_objective(rep.objective, bounds))
+    chosen = rep.selection.nonzero()[0].tolist()
+    print(f"train depth sbert-paper summary of synthetic_document(3, 16), M 5: selected "
+          f"{chosen}, objective {rep.objective:.6f}, normalized {score:.6f} against exact "
+          f"enumeration ({math.comb(16, 5)} subsets; bounds {bounds}); launches "
+          f"{ {k: v for k, v in c.items() if v} }")
+    for i in chosen:
+        print(f"train depth sbert-paper summary:   - {sents[i]}")
+    if len(chosen) != 5 or score <= 0.8:
+        fail(f"train depth sbert-paper summary: {len(chosen)} selected, normalized {score}")
+
+    # The same weights in the encoder stage: flash (the wgmma kernel at D 64)
+    # against the chunked route.
+    embs = {}
+    for impl in ("flash", "auto"):
+        reset_counts()
+        with EncoderStage(cfg, trained, max_len=2048, attn_impl=impl) as stage:
+            futs = [stage.submit(d) for _, d, _ in enc_docs]
+            embs[impl] = [f.result(timeout=600) for f in futs]
+            n_pass = stage.stats().launches
+        c = counts()
+        if c != expect(flash_attention=cfg.n_layers * n_pass if impl == "flash" else 0):
+            fail(f"train depth sbert-paper stage {impl}: launches {c} ({n_pass} passes)")
+        if impl == "flash":
+            n_flash = add_flash_launches(launches, c, "wgmma")
+    cos = min(float(F.cosine_similarity(a, b, dim=-1).min())
+              for a, b in zip(embs["flash"], embs["auto"]))
+    err = max(float((a - b).abs().max()) for a, b in zip(embs["flash"], embs["auto"]))
+    finite = all(bool(torch.isfinite(e).all()) for e in embs["flash"])
+    print(f"train depth sbert-paper stage: {len(enc_docs)} documents, flash ({n_flash} "
+          f"flash_attention launches) against the chunked route: min sentence cosine "
+          f"{cos:.6f}, max abs err {err:.3e}")
+    if not finite or cos < 0.999:
+        fail(f"train depth sbert-paper stage: flash against chunked, min cosine {cos}")
+    del model, state, trained, fresh, back, enc, embs, step
+    release()
+    walls = {"a": time.perf_counter() - t_phase}
+
+    # ---------------------------------------------------------------- (b)
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    for name in TRAIN_DEPTH_FAMILIES:
+        t_fam = time.perf_counter()
+        cfg = get_config(name)
+        release()
+        torch.cuda.reset_peak_memory_stats()
+        model = init_params(cfg, 0)
+        n_params = sum(p.numel() for p in model.parameters())
+        w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+        state_dtype = TRAIN_DEPTH_STATE[name]
+        s_size = 4 if state_dtype == "float32" else 2
+        reckon = {dt: n_params * 8 + 3 * n_params * sz
+                  for dt, sz in (("float32", 4), ("bfloat16", 2))}
+        n_slstm = cfg.n_groups if cfg.family == "ssm" else 0
+        label = f"{name} ({cfg.n_layers} layers"
+        if cfg.encoder_layers:
+            label += f" + {cfg.encoder_layers} encoder layers"
+        label += f", bf16, microbatch {cfg.microbatch}, remat {cfg.remat})"
+        print(f"train depth {label}: {n_params / 1e9:.4f} B parameters, weights {gb(w_bytes)}; "
+              f"reckoned (weights 2, float32 accumulator 4, gradients 2, state 3 x 4 or 3 x 2 "
+              f"bytes a parameter): float32 state {gb(reckon['float32'])}, bf16 state "
+              f"{gb(reckon['bfloat16'])}; state {state_dtype} (fixed in TRAIN_DEPTH_STATE)")
+        data = SyntheticTextTask(DataConfig(batch_size=b, seq_len=s), cfg.vocab_size)
+        fixed = {k: torch.as_tensor(v, device=dev) for k, v in data.batch(0).items()}
+        if cfg.n_frontend_tokens:
+            fixed["frontend"] = torch.tensor(np.random.default_rng(0).standard_normal(
+                (b, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32),
+                device=dev).to(cfg.dtype)
+        row0 = {k: v[:1] for k, v in fixed.items()}
+        cut = lambda n: {k: (v if k == "frontend" else v[:, :n]) for k, v in row0.items()}
+        own = [p for _, p in tree_parts(param_tree(model))]
+
+        def grads_with(remat: bool, batch) -> list:
+            with tsteps._trainable(own):
+                tot, _ = train_loss(cfg.replace(remat=remat), model, batch)
+                return list(torch.autograd.grad(tot, own))
+
+        reset_counts()
+        if n_slstm:
+            # At its registered init (r drawn at fan-in NH) the sLSTM is
+            # chaotic: its gradients over REMAT_SEQ positions are not
+            # finite.  The family trains, and is checked, with r redrawn at
+            # fan-in dh, as 4h and 4i hold it.
+            bad = sum(int((~torch.isfinite(g)).sum()) for g in grads_with(True, cut(REMAT_SEQ)))
+            dh = cfg.d_model // cfg.n_heads
+            with torch.no_grad():
+                for group in model.layers:
+                    group.slstm.cell.r.mul_((cfg.n_heads / dh) ** 0.5)
+            print(f"train depth {label}: at the registered init, bf16, B 1 x S {REMAT_SEQ}: "
+                  f"{bad} non-finite gradient elements; r redrawn at fan-in dh (x "
+                  f"{(cfg.n_heads / dh) ** 0.5:.4f}) for the checks and the steps")
+
+        # (1) The gradient check, part by part, on a float32 copy.
+        t0 = time.perf_counter()
+        cfg32 = cfg.replace(param_dtype="float32")
+        m32 = copy.deepcopy(model).to(torch.float32)
+        b32 = {k: v.to(torch.float32) if k == "frontend" else v
+               for k, v in cut(GRADCHECK_SEQ).items()}
+        parts = model_parts(cfg32, m32)
+        n_parts = len(parts)
+        leaves = [p for _, ps in parts for p in ps]
+        with tsteps._trainable(leaves):
+            total, _ = train_loss(cfg32, m32, b32)
+            grads = torch.autograd.grad(total, leaves)
+        g_of = {id(p): g for p, g in zip(leaves, grads)}
+        del grads
+
+        def f32_loss() -> float:
+            with torch.no_grad():
+                return float(train_loss(cfg32, m32, b32)[0])
+
+        f0 = float(total.detach())
+        noise = abs(f32_loss() - f0)
+        rows, worst = [], 0.0
+        with torch.no_grad():
+            for plabel, ps in parts:
+                g = [g_of[id(p)] for p in ps]
+                gn = float(torch.sqrt(sum(torch.sum(x.double() ** 2) for x in g)))
+                if not gn > 0 or not math.isfinite(gn):
+                    fail(f"train depth {name} gradient check: |g| of {plabel} is {gn}")
+                eps = DEPTH_DELTA * abs(f0) / gn
+                saved = [p.clone() for p in ps]
+                f_side = []
+                for sign in (1.0, -1.0):
+                    for p, x in zip(ps, g):
+                        p.add_(x, alpha=sign * eps / gn)
+                    f_side.append(f32_loss())
+                    for p, w in zip(ps, saved):
+                        p.copy_(w)
+                deriv = (f_side[0] - f_side[1]) / (2 * eps)
+                rel = abs(deriv - gn) / gn
+                worst = max(worst, rel)
+                rows.append(f"{plabel} |g| {gn:.4e} eps {eps:.3e} D {deriv:.4e} rel {rel:.1e}")
+                if not rel <= GRADCHECK_TOL:
+                    fail(f"train depth {name} gradient check: {plabel}: the central difference "
+                         f"{deriv} against |g| {gn} (relative {rel} > {GRADCHECK_TOL})")
+        print(f"train depth {label} gradient check (float32 copy, TF32 off, B 1 x S "
+              f"{GRADCHECK_SEQ}" + (", sLSTM r at fan-in dh" if n_slstm else "")
+              + f"): loss {f0:.6f}, a repeated forward differs by {noise:.3e} (the loss's "
+              f"float32 ulp {float(np.spacing(np.float32(f0))):.3e}); {n_parts} parts, worst "
+              f"relative error {worst:.2e} (bar {GRADCHECK_TOL}) in "
+              f"{time.perf_counter() - t0:.1f} s: " + "; ".join(rows))
+        del m32, g_of, total, parts, leaves
+        release()
+
+        # (2) Remat on against off, bf16, B 1 x S 512.
+        t0 = time.perf_counter()
+        b512 = cut(REMAT_SEQ)
+
+        def gap(xs, ys) -> float:
+            return max(float((x.float() - y.float()).abs().max()) for x, y in zip(xs, ys))
+
+        on = grads_with(True, b512)
+        spread = gap(on, grads_with(True, b512))
+        off = grads_with(False, b512)
+        bitwise = all(torch.equal(x, y) for x, y in zip(on, off))
+        diff = gap(on, off)
+        print(f"train depth {label} remat on against off (bf16, B 1 x S {REMAT_SEQ}, "
+              f"{len(own)} gradient tensors): two runs with remat on differ by {spread:.3e}; on "
+              f"against off {diff:.3e}: " + ("bit for bit" if bitwise else
+                                             "within twice the spread" if diff <= 2 * spread
+                                             else "differs") + f" ({time.perf_counter() - t0:.1f} s)")
+        if not bitwise and (spread == 0 or diff > 2 * spread):
+            fail(f"train depth {name}: remat on and off give gradients {diff} apart (remat on "
+                 f"against itself {spread})")
+        del on, off
+        release()
+
+        # (3) The serving forward's cross-entropy on the fixed batch.
+        mb = cfg.microbatch
+        size = b // mb
+        with torch.no_grad():
+            ce = 0.0
+            for i in range(mb):
+                part = {k: v[i * size:(i + 1) * size] for k, v in fixed.items()}
+                logits, _, _ = forward(cfg, model, part["tokens"], mode="train",
+                                       frontend=part.get("frontend"))
+                ce += float(F.cross_entropy(logits.flatten(0, 1), part["targets"].flatten().long(),
+                                            ignore_index=-1)) / mb
+                del logits
+        # The checks' sLSTM launches: the registered init's gradients
+        # (forward, remat's recomputation, backward), the gradient check's
+        # (the same), its repeated forward and two forwards a part, remat on
+        # twice and off once, a forward a microbatch.
+        checks = counts()
+        want = expect(slstm_scan=n_slstm * (10 + 2 * n_parts + mb),
+                      slstm_scan_backward=5 * n_slstm)
+        if checks != want:
+            fail(f"train depth {name}: the checks launched {checks}, want {want}")
+
+        # The steps: FIXED_STEPS on the fixed batch.
+        ocfg = opt.OptConfig(warmup_steps=1, total_steps=FIXED_STEPS,
+                             state_dtype=state_dtype)
+        state = opt.init(model, ocfg)
+        s_bytes = sum(t.numel() * t.element_size() for key in ("master", "mu", "nu")
+                      for _, t in tree_parts(state[key]))
+        step = tsteps.make_train_step(cfg, ocfg)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        timed = []
+        timed_step = timed_steps(step, timed)
+        t0 = time.perf_counter()
+        for _ in range(FIXED_STEPS):
+            model, state, _ = timed_step(model, state, fixed)
+        torch.cuda.synchronize()
+        t_steps = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        stepped = counts()
+        ms = [a.elapsed_time(e) for (a, e), _ in timed]
+        losses = [float(m["loss"]) for _, m in timed]
+        norms = [float(m["grad_norm"]) for _, m in timed]
+        med = percentile(ms[1:], 0.5)
+        want_steps = expect(slstm_scan=2 * mb * n_slstm * FIXED_STEPS,
+                            slstm_scan_backward=mb * n_slstm * FIXED_STEPS)
+        print(f"train depth {label}: {FIXED_STEPS} steps of B {b} x S {s} on one batch at "
+              f"OptConfig(warmup_steps=1) in {t_steps:.2f} s; ms a step (CUDA events) "
+              + " ".join(f"{x:.1f}" for x in ms) + f"; warm median {med:.2f} ms "
+              f"({b * s / med * 1e3:.1f} tokens/s); losses " + " ".join(f"{x:.4f}" for x in losses)
+              + "; grad norms " + " ".join(f"{x:.4f}" for x in norms)
+              + f"; the serving forward's cross-entropy {ce:.6f}")
+        print(f"train depth {label} memory: peak {gb(peak)} over the steps; reckoned "
+              f"{gb(reckon[state_dtype])} (weights {gb(w_bytes)}, float32 accumulator "
+              f"{gb(4 * n_params)}, gradients {gb(2 * n_params)}, {state_dtype} state "
+              f"{gb(s_bytes)}), peak - reckoned {gb(peak - reckon[state_dtype])} "
+              f"(activations, the logits, workspace); {card}")
+        if not all(math.isfinite(x) for x in losses + norms):
+            fail(f"train depth {name}: losses {losses}, grad norms {norms}")
+        if abs(losses[0] - ce) > 2.0**-8 * abs(ce):
+            fail(f"train depth {name}: the first step's loss {losses[0]} against the serving "
+                 f"forward's cross-entropy {ce}: beyond bf16's unit roundoff")
+        if losses[-1] >= losses[0]:
+            fail(f"train depth {name}: on one batch the loss went {losses[0]} -> {losses[-1]}")
+        if stepped != want_steps:
+            fail(f"train depth {name}: the steps launched {stepped}, want {want_steps}")
+
+        # One more step under the profiler.
+        scans = [(ssd, "chunked_linear_attention", "scan"), (xlstm, "chunked_linear_attention",
+                                                             "scan"), (ops, "slstm_scan", "scan")]
+        with spanned([(attn, "_sdpa_chunked", "attention"), (attn, "_sdpa", "attention"),
+                      (opt, "apply_updates", "optimizer"), *scans]):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                model, state, met = step(model, state, fixed)
+                loss = float(met["loss"])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        split = decode_split(prof, wall, 1, prefix="train.",
+                             regions=("attention", "scan", "optimizer"))
+        del prof
+        tail = counts()
+        want = {k: v * (FIXED_STEPS + 1) // FIXED_STEPS for k, v in want_steps.items()}
+        if tail != want:
+            fail(f"train depth {name}: {FIXED_STEPS + 1} steps launched {tail}, want {want}")
+        for k in ("slstm_scan", "slstm_scan_backward"):
+            launches[k] += checks[k] + tail[k]
+        n_scan = {k: checks[k] + tail[k] for k in ("slstm_scan", "slstm_scan_backward")}
+        print(f"train depth {label} step profile (step {FIXED_STEPS + 1}, loss {loss:.4f}): "
+              f"{json.dumps(split)}")
+        if n_slstm:
+            print(f"train depth {label}: slstm_scan launches {n_scan['slstm_scan']}, "
+                  f"slstm_scan_backward {n_scan['slstm_scan_backward']}: a step "
+                  f"{want_steps['slstm_scan'] // FIXED_STEPS} and "
+                  f"{want_steps['slstm_scan_backward'] // FIXED_STEPS} ({n_slstm} layers x {mb} "
+                  f"microbatches, forward and recompute / backward) over {FIXED_STEPS + 1} steps, "
+                  f"and the checks' {checks['slstm_scan']} and {checks['slstm_scan_backward']}")
+
+        # The bound: 3 x the forward's FLOP (forward and backward; remat's
+        # recomputation is not model work) over the bf16 peak, plus the
+        # optimizer's bytes (read a weight, its float32 gradient and the
+        # state, write the weight and the state) over HBM's rate.
+        flop = 3 * forward_flops(cfg, b, s)
+        opt_bytes = n_params * (2 + 4 + 3 * s_size + 2 + 3 * s_size)
+        model_ms, opt_ms = flop / PEAK_BF16_FLOPS * 1e3, opt_bytes / PEAK_BYTES_PER_S * 1e3
+        bound = model_ms + opt_ms
+        print(f"train depth {label} bound: {flop / 1e12:.2f} TFLOP, {model_ms:.2f} ms at "
+              f"{PEAK_BF16_FLOPS / 1e12:.1f} TFLOP/s (operations); optimizer {gb(opt_bytes)}, "
+              f"{opt_ms:.2f} ms (bytes); bound {bound:.2f} ms a step; the warm median is "
+              f"{med / bound:.2f}x it (share {bound / med:.4f}); {card}")
+        print("train depth summary " + json.dumps({
+            "name": name, "card": card, "batch": b, "seq": s, "microbatch": mb,
+            "remat": cfg.remat, "state_dtype": state_dtype, "parameters": n_params,
+            "step_ms": ms, "step_ms_median": med, "tokens_s": b * s / med * 1e3,
+            "losses": losses, "grad_norms": norms, "serving_ce": ce,
+            "peak_memory_bytes": peak, "reckoned_bytes": reckon[state_dtype],
+            "reckoned_bytes_bf16_state": reckon["bfloat16"], "bound_ms": bound,
+            "bound_share": bound / med, "launches_a_step": split["launches_a_step"],
+            "host_syncs_a_step": split["host_syncs_a_step"],
+            "idle_share": split["idle_share"], "split_ms": split["split_ms_a_step"],
+            "gradcheck_worst_rel": worst, "gradcheck_noise": noise, "remat_spread": spread,
+            "remat_diff": diff, "slstm_launches": n_scan,
+            "wall_s": time.perf_counter() - t_fam}))
+        del model, state, step, fixed, row0, b512, own, data
+        release()
+        walls[name] = time.perf_counter() - t_fam
+    print(f"train depth phase wall: {time.perf_counter() - t_phase:.1f} s ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()) + ")")
 
 
 def distributed_phase(dev, reset_counts, counts, expect, launches, train) -> None:
@@ -4361,10 +4897,8 @@ def main() -> None:
             continue
         name, us = ev.key, ev.self_device_time_total
         kernels_us[name] = us
-        low = name.lower()
         flash_name = next((n for n in fa.KERNEL_NAMES if n in name), None)
-        kind = ("flash" if flash_name
-                else "gemm" if any(x in low for x in ("gemm", "nvjet", "xmma", "cutlass")) else "other")
+        kind = "flash" if flash_name else "gemm" if is_gemm(name) else "other"
         split[kind] += us
         if flash_name:
             flash_by_name[flash_name] += us
@@ -4397,6 +4931,8 @@ def main() -> None:
 
     # ------------------------------------------------------------ 4i. training
     train = train_phase(dev, reset_counts, counts, expect, launches)
+    train_depth_phase(dev, reset_counts, counts, expect, launches, enc_docs)
+    print(f"run wall after phase 4i (2): {time.perf_counter() - t_start:.1f} s")
 
     # ------------------------------------------------------------ 4j. distributed
     distributed_phase(dev, reset_counts, counts, expect, launches, train)

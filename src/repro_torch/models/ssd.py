@@ -65,15 +65,25 @@ def chunked_linear_attention(
     rem = torch.exp(total[:, :, None] - cum)  # (B, C, L, H)
     s_chunk = torch.einsum("bclh,bclhn,bclhp->bchnp", rem, kc, vc)
 
-    # Inter-chunk scan: S_c = exp(total_c) S_{c-1} + s_chunk_c, keeping the
-    # state entering each chunk.
-    state = (torch.zeros((b, h, n, p), dtype=f32, device=q.device) if state0 is None
-             else state0.to(f32))
-    prev = []
-    for ci in range(c):
-        prev.append(state)
-        state = torch.exp(total[:, ci])[..., None, None] * state + s_chunk[:, ci]
-    prev_states = torch.stack(prev, dim=1)  # (B, C, H, N, P)
+    # Inter-chunk: the recurrence S_c = exp(total_c) S_{c-1} + s_chunk_c
+    # (S_{-1} = state0) in closed form, S_i = sum_{j <= i} exp(sum_{j < k <=
+    # i} total_k) s_chunk_j + exp(sum_{k <= i} total_k) state0: one product
+    # over the chunks where a loop takes a few launches a chunk (and more
+    # in its backward).  The segment sums are masked running sums, never
+    # differences of running sums.
+    tot = total.permute(0, 2, 1)  # (B, H, C)
+    ones = torch.ones((c, c), dtype=torch.bool, device=q.device)
+    below = torch.tril(ones, diagonal=-1)
+    seg = torch.cumsum(tot[..., :, None].expand(b, h, c, c).masked_fill(~below, 0.0), dim=-2)
+    chain = torch.exp(seg.masked_fill(~torch.tril(ones), float("-inf")))  # (B, H, C, C)
+    after = torch.einsum("bhij,bjhnp->bihnp", chain, s_chunk)  # S_i: (B, C, H, N, P)
+    if state0 is None:
+        first = torch.zeros((b, 1, h, n, p), dtype=f32, device=q.device)
+    else:
+        first = state0.to(f32)[:, None]
+        after = after + torch.exp(torch.cumsum(total, dim=1))[..., None, None] * first
+    prev_states = torch.cat([first, after[:, :-1]], dim=1)  # the state entering each chunk
+    state = after[:, -1]
 
     y_inter = torch.einsum("bclhn,bchnp,bclh->bclhp", qc, prev_states, torch.exp(cum))
     y = (y_intra + y_inter).reshape(b, s, h, p)[:, :s_orig]
