@@ -15,7 +15,11 @@ iterations submit as jobs, a driver interleaves many requests' rounds, and
 futures reduce back into a :class:`SolveReport` that carries the backend's
 receipt accounting (chip time, energy, attributed host<->device bytes,
 sim-clock completion).  For the same key they are bit-identical to the
-inline path.
+inline path.  Given the request's span (``span=``), they open child spans
+for their phases: ``pipeline.formulation``, ``pipeline.rounding``,
+``pipeline.submit``, ``pipeline.reduce`` (with ``pipeline.repair`` and
+``pipeline.objective`` inside, one each per iteration) and
+``pipeline.window_plan``; with the default ``NULL_SPAN`` each costs a call.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from repro_torch.core.formulation import (
 )
 from repro_torch.core.rounding import COBI_RANGE, quantize_ising, quantize_ising_many
 from repro_torch.device import resolve_device
+from repro_torch.obs.trace import NULL_SPAN
 from repro_torch.solvers import base as solver_base
 from repro_torch.solvers import brute as brute_solver
 from repro_torch.solvers import random_baseline
@@ -346,7 +351,7 @@ class _Round:
 
 def _submit_iterations(
     problem: EsProblem, key: torch.Tensor, cfg: SolveConfig, backend, priority: int,
-    deadline: Optional[float] = None, tag: Optional[int] = None,
+    deadline: Optional[float] = None, tag: Optional[int] = None, *, span=NULL_SPAN,
 ) -> _Round:
     """Submit the instance's cfg.iterations solve jobs; returns a _Round.
 
@@ -355,15 +360,17 @@ def _submit_iterations(
     replica spins/energies on the device and each future resolves to just the
     winner (bit-identical to all-reads + host argmin on integer instances).
     """
-    ising_fp = _build_ising(problem, cfg)
+    with span.child("pipeline.formulation"):
+        ising_fp = _build_ising(problem, cfg)
     check = cfg.int_range is not None or cfg.bits is not None
     keypairs = _iteration_keys(key, cfg.iterations)
     if check:
         # Same per-iteration keys as the sequential path.
-        quantized = quantize_ising_many(
-            ising_fp, [kq for kq, _ in keypairs], cfg.rounding,
-            int_range=cfg.int_range or COBI_RANGE, bits=cfg.bits,
-        )
+        with span.child("pipeline.rounding", iterations=cfg.iterations, n=problem.n):
+            quantized = quantize_ising_many(
+                ising_fp, [kq for kq, _ in keypairs], cfg.rounding,
+                int_range=cfg.int_range or COBI_RANGE, bits=cfg.bits,
+            )
         instances = [q.ising for q in quantized]
     else:
         instances = [ising_fp] * cfg.iterations
@@ -377,41 +384,47 @@ def _submit_iterations(
             check=check, reduce="best", tag=tag,
         )
 
-    return _Round([submit_one(i) for i in range(cfg.iterations)], submit_one)
+    with span.child("pipeline.submit"):
+        futures = [submit_one(i) for i in range(cfg.iterations)]
+    return _Round(futures, submit_one)
 
 
-def _best_of(problem: EsProblem, cfg: SolveConfig, results):
+def _best_of(problem: EsProblem, cfg: SolveConfig, results, *, span=NULL_SPAN):
     """Best-of-iterations under the FP objective (strict ``>``: the earliest
     iteration wins ties), as the inline loop reduces."""
     best_x, best_obj, curve = None, -np.inf, []
     for result in results:
         x = _best_selection(result)
         if cfg.repair:
-            x = repair_selection(problem, x)
-        obj = _objective_np(problem, x)
+            with span.child("pipeline.repair"):
+                x = repair_selection(problem, x)
+        with span.child("pipeline.objective"):
+            obj = _objective_np(problem, x)
         if obj > best_obj:
             best_obj, best_x = obj, x
         curve.append(best_obj)
     return best_x, best_obj, curve
 
 
-def _reduce_iterations(problem: EsProblem, cfg: SolveConfig, futures):
+def _reduce_iterations(problem: EsProblem, cfg: SolveConfig, futures, *,
+                       span=NULL_SPAN):
     """Consume one instance's iteration futures -> best-of + accounting.
 
     Each future is released after its result AND receipt are consumed, so a
     long-lived backend's completed-job buffers stay bounded.
     """
-    acct = _Acct()
-    results = []
-    for fut in futures:
-        results.append(fut.result())
-        acct.add(fut.receipt())
-        fut.release()
-    return (*_best_of(problem, cfg, results), acct)
+    with span.child("pipeline.reduce") as rspan:
+        acct = _Acct()
+        results = []
+        for fut in futures:
+            results.append(fut.result())
+            acct.add(fut.receipt())
+            fut.release()
+        return (*_best_of(problem, cfg, results, span=rspan), acct)
 
 
 def _reduce_with_recovery(problem: EsProblem, cfg: SolveConfig, rnd: _Round,
-                          recovery):
+                          recovery, *, span=NULL_SPAN):
     """Fault-tolerant variant of :func:`_reduce_iterations` (generator).
 
     ``recovery`` is any object with the reference recovery context's surface:
@@ -424,65 +437,68 @@ def _reduce_with_recovery(problem: EsProblem, cfg: SolveConfig, rnd: _Round,
     iteration index and reduced in INDEX order, so the best-of tie-break
     matches the fault-free run bit for bit no matter which attempt finally
     succeeded.  On any terminal error every remaining future is
-    cancelled/released.
+    cancelled/released.  Its ``pipeline.reduce`` span runs from the first
+    result collected to the best-of, across the rounds of any retries.
     """
-    futures = list(rnd.futures)
-    k = len(futures)
-    attempts = [0] * k
-    moved = [False] * k          # already failed over?
-    results: list = [None] * k
-    pending = set(range(k))
-    acct = _Acct()
-    try:
-        while pending:
-            retried: list = []
+    with span.child("pipeline.reduce") as rspan:
+        futures = list(rnd.futures)
+        k = len(futures)
+        attempts = [0] * k
+        moved = [False] * k          # already failed over?
+        results: list = [None] * k
+        pending = set(range(k))
+        acct = _Acct()
+        try:
+            while pending:
+                retried: list = []
+                for i in sorted(pending):
+                    fut = futures[i]
+                    try:
+                        result = fut.result()
+                    except recovery.retryable as exc:
+                        recovery.note_fault(exc)
+                        fut.release()
+                        be = recovery.decide(attempts[i], exc, failed_over=moved[i])
+                        attempts[i] += 1
+                        if be is not None:
+                            moved[i] = True
+                            acct.tally(recovery.failover_name, 1)
+                        futures[i] = rnd.resubmit(i, be)
+                        retried.append(i)
+                        continue
+                    acct.add(fut.receipt())
+                    fut.release()
+                    results[i] = result
+                    pending.discard(i)
+                if retried:
+                    # Round barrier: the driver drains before resuming, so the
+                    # resubmitted futures are resolvable on the next pass.
+                    yield [futures[i] for i in retried]
+        except BaseException:
             for i in sorted(pending):
                 fut = futures[i]
-                try:
-                    result = fut.result()
-                except recovery.retryable as exc:
-                    recovery.note_fault(exc)
+                if fut.done():
                     fut.release()
-                    be = recovery.decide(attempts[i], exc, failed_over=moved[i])
-                    attempts[i] += 1
-                    if be is not None:
-                        moved[i] = True
-                        acct.tally(recovery.failover_name, 1)
-                    futures[i] = rnd.resubmit(i, be)
-                    retried.append(i)
-                    continue
-                acct.add(fut.receipt())
-                fut.release()
-                results[i] = result
-                pending.discard(i)
-            if retried:
-                # Round barrier: the driver drains before resuming, so the
-                # resubmitted futures are resolvable on the next pass.
-                yield [futures[i] for i in retried]
-    except BaseException:
-        for i in sorted(pending):
-            fut = futures[i]
-            if fut.done():
-                fut.release()
-            else:
-                fut.cancel()
-                fut.add_done_callback(lambda f: f.release())
-        raise
-    return (*_best_of(problem, cfg, results), acct)
+                else:
+                    fut.cancel()
+                    fut.add_done_callback(lambda f: f.release())
+            raise
+        return (*_best_of(problem, cfg, results, span=rspan), acct)
 
 
 def _iter_iterations(
     problem: EsProblem, key: torch.Tensor, cfg: SolveConfig, backend, priority: int,
     deadline: Optional[float] = None, tag: Optional[int] = None,
-    recovery=None,
+    recovery=None, *, span=NULL_SPAN,
 ):
     """Submit the instance's iteration jobs, yield (round barrier), reduce."""
     rnd = _submit_iterations(problem, key, cfg, backend, priority,
-                             deadline, tag)
+                             deadline, tag, span=span)
     yield rnd.futures
     if recovery is None:
-        return _reduce_iterations(problem, cfg, rnd.futures)
-    return (yield from _reduce_with_recovery(problem, cfg, rnd, recovery))
+        return _reduce_iterations(problem, cfg, rnd.futures, span=span)
+    return (yield from _reduce_with_recovery(problem, cfg, rnd, recovery,
+                                             span=span))
 
 
 # Per-window backend picker for routed serving: ``route(n, reads) ->
@@ -509,6 +525,7 @@ def iter_solve_es(
     tag: Optional[int] = None,
     route: Optional[RouteFn] = None,
     recovery=None,
+    span=NULL_SPAN,
 ):
     """Generator form of :func:`solve_es` over a :class:`SolverBackend`.
 
@@ -529,7 +546,8 @@ def iter_solve_es(
     results stay bit-identical and ``SolveReport.backend_jobs`` records the
     split.  ``recovery`` (see :func:`_reduce_with_recovery`) turns typed farm
     faults into retries and failover instead of propagating them; without it
-    the first fault raises.
+    the first fault raises.  ``span`` (the request's) parents the phase
+    spans listed in the module docstring.
     """
     backend = backend if backend is not None else farm
     if backend is None:
@@ -542,13 +560,14 @@ def iter_solve_es(
     if cfg.decompose:
         driver = _iter_decomposed if cfg.pipeline_windows else _iter_decomposed_lockstep
         return (yield from driver(
-            problem, key, cfg, backend, priority, deadline, tag, route, recovery
+            problem, key, cfg, backend, priority, deadline, tag, route, recovery,
+            span=span,
         ))
     name, predicted = None, 0.0
     if route is not None:
         name, backend, deadline, predicted = route(problem.n, cfg.reads)
     best_x, best_obj, curve, acct = yield from _iter_iterations(
-        problem, key, cfg, backend, priority, deadline, tag, recovery
+        problem, key, cfg, backend, priority, deadline, tag, recovery, span=span
     )
     acct.tally(name, cfg.iterations)
     windows = []
@@ -560,17 +579,20 @@ def iter_solve_es(
     return acct.report(best_x, best_obj, curve, cfg.iterations, windows)
 
 
-def _decomposed_report(problem, cfg, selection, invocations, acct, windows):
+def _decomposed_report(problem, cfg, selection, invocations, acct, windows, *,
+                       span=NULL_SPAN):
     if cfg.repair:
-        selection = repair_selection(problem, selection)
-    obj = float(es_objective(problem, torch.as_tensor(selection)))
+        with span.child("pipeline.repair"):
+            selection = repair_selection(problem, selection)
+    with span.child("pipeline.objective"):
+        obj = float(es_objective(problem, torch.as_tensor(selection)))
     return acct.report(selection, obj, [obj], invocations, windows)
 
 
 def _iter_decomposed_lockstep(
     problem: EsProblem, key: torch.Tensor, cfg: SolveConfig, backend, priority: int,
     deadline: Optional[float] = None, tag: Optional[int] = None,
-    route: Optional[RouteFn] = None, recovery=None,
+    route: Optional[RouteFn] = None, recovery=None, *, span=NULL_SPAN,
 ):
     """Decomposed backend driver with ONE window in flight at a time (the
     ``pipeline_windows=False`` fallback, and the reference the pipelined
@@ -582,7 +604,8 @@ def _iter_decomposed_lockstep(
     steps = decomp.decompose_steps(problem, k_dec, p=cfg.p, q=cfg.q)
     acct = _Acct()
     windows: List[WindowRecord] = []
-    item = next(steps)
+    with span.child("pipeline.window_plan"):
+        item = next(steps)
     while True:
         sub, m, k_sub = item
         w_name, w_backend, w_deadline, w_pred = None, backend, deadline, 0.0
@@ -590,7 +613,7 @@ def _iter_decomposed_lockstep(
             w_name, w_backend, w_deadline, w_pred = route(sub.n, sub_cfg.reads)
         sel, _, _, sub_acct = yield from _iter_iterations(
             sub.with_m(m), k_sub, sub_cfg, w_backend, priority, w_deadline,
-            tag, recovery
+            tag, recovery, span=span
         )
         acct.add(sub_acct)
         acct.tally(w_name, sub_cfg.iterations)
@@ -601,18 +624,20 @@ def _iter_decomposed_lockstep(
                 sub_acct.energy_joules, sub_cfg.iterations,
             ))
         try:
-            item = steps.send(sel)
+            with span.child("pipeline.window_plan"):
+                item = steps.send(sel)
         except StopIteration as done:
             selection, trace = done.value
             break
     return _decomposed_report(problem, cfg, selection,
-                              trace.num_solves * cfg.iterations, acct, windows)
+                              trace.num_solves * cfg.iterations, acct, windows,
+                              span=span)
 
 
 def _iter_decomposed(
     problem: EsProblem, key: torch.Tensor, cfg: SolveConfig, backend, priority: int,
     deadline: Optional[float] = None, tag: Optional[int] = None,
-    route: Optional[RouteFn] = None, recovery=None,
+    route: Optional[RouteFn] = None, recovery=None, *, span=NULL_SPAN,
 ):
     """Pipelined decomposed backend driver: ALL planned windows in flight.
 
@@ -632,9 +657,10 @@ def _iter_decomposed(
     """
     k_dec, _ = prng.split(key)
     sub_cfg = dataclasses.replace(cfg, decompose=False)
-    plan = decomp.PipelinedDecomposition(
-        problem, k_dec, p=cfg.p, q=cfg.q, speculate=cfg.speculate_windows
-    )
+    with span.child("pipeline.window_plan"):
+        plan = decomp.PipelinedDecomposition(
+            problem, k_dec, p=cfg.p, q=cfg.q, speculate=cfg.speculate_windows
+        )
     inflight: dict = {}  # (seq, indices) -> (sub, round, name, predicted)
     windows_submitted = 0
     acct = _Acct()
@@ -659,7 +685,7 @@ def _iter_decomposed(
                     sub,
                     _submit_iterations(
                         sub, spec.key, sub_cfg, w_backend, priority,
-                        w_deadline, tag
+                        w_deadline, tag, span=span
                     ),
                     w_name,
                     w_pred,
@@ -672,10 +698,11 @@ def _iter_decomposed(
         if not all(f.done() for f in rnd.futures):
             yield rnd.futures
         if recovery is None:
-            sel, _, _, sub_acct = _reduce_iterations(sub, sub_cfg, rnd.futures)
+            sel, _, _, sub_acct = _reduce_iterations(sub, sub_cfg, rnd.futures,
+                                                     span=span)
         else:
             sel, _, _, sub_acct = yield from _reduce_with_recovery(
-                sub, sub_cfg, rnd, recovery)
+                sub, sub_cfg, rnd, recovery, span=span)
         acct.add(sub_acct)
         if route is not None:
             windows.append(WindowRecord(
@@ -684,7 +711,8 @@ def _iter_decomposed(
                 sub_acct.energy_joules, sub_cfg.iterations,
             ))
         consumed.add(fkey)
-        plan.resolve(sel)
+        with span.child("pipeline.window_plan"):
+            plan.resolve(sel)
     # Mis-speculated windows that already annealed burned real chip time
     # (and transfer bytes): bill them to this request, but do NOT let them
     # move sim_completed -- the answer was available without them.
@@ -710,7 +738,8 @@ def _iter_decomposed(
                 fut.add_done_callback(lambda f: f.release())
     selection, _trace = plan.final
     return _decomposed_report(problem, cfg, selection,
-                              windows_submitted * cfg.iterations, acct, windows)
+                              windows_submitted * cfg.iterations, acct, windows,
+                              span=span)
 
 
 def drive_with_backend(gen, backend) -> SolveReport:

@@ -576,19 +576,24 @@ class EncoderStage:
     def _run_group(self, length: int, jobs: List[_EncodeJob]) -> None:
         b_pad = _bucket(len(jobs), BATCH_BUCKET)
         g_pad = _bucket(max(j.n_items for j in jobs), SEG_BUCKET)
-        tokens = np.zeros((b_pad, length), np.int32)
-        segs = np.full((b_pad, length), -1, np.int32)
-        for i, job in enumerate(jobs):
-            tokens[i] = job.tokens
-            segs[i] = job.segs
-        t_start = time.monotonic()
-        out = _embed_batch(self.cfg, self.params,
-                           torch.from_numpy(tokens).to(self.device),
-                           torch.from_numpy(segs).to(self.device), int(g_pad))
-        self._sync()
-        t_end = time.monotonic()
-        wall = t_end - t_start
         total_tok = sum(j.n_tokens for j in jobs)
+        tracer = self.obs.tracer
+        # One pass on the stage's thread, from host packing through the
+        # device synchronise.
+        with tracer.span("encoder.pass", track="encoder", jobs=len(jobs),
+                         length=length, batch=b_pad, tokens=total_tok):
+            tokens = np.zeros((b_pad, length), np.int32)
+            segs = np.full((b_pad, length), -1, np.int32)
+            for i, job in enumerate(jobs):
+                tokens[i] = job.tokens
+                segs[i] = job.segs
+            t_start = time.monotonic()
+            out = _embed_batch(self.cfg, self.params,
+                               torch.from_numpy(tokens).to(self.device),
+                               torch.from_numpy(segs).to(self.device), int(g_pad))
+            self._sync()
+            t_end = time.monotonic()
+        wall = t_end - t_start
         spt = wall / max(total_tok, 1)
         with self._lock:
             self._busy.append((t_start, t_end))
@@ -606,7 +611,6 @@ class EncoderStage:
             ).observe(spt)
         done = self.sim_now()
         d = int(self.cfg.d_model)
-        tracer = self.obs.tracer
         tw1 = tracer.now() if tracer.enabled else 0.0
         for i, job in enumerate(jobs):
             emb = out[i, :job.n_items]

@@ -86,8 +86,10 @@ def main():
                          "two runs; default: built-in hardware-constant "
                          "profile)")
     ap.add_argument("--trace-out", default=None, metavar="PATH",
-                    help="write a Chrome-trace/Perfetto JSON of the run "
-                         "(open in ui.perfetto.dev or chrome://tracing)")
+                    help="write a Chrome-trace/Perfetto JSON of the run, "
+                         "stamped in Unix-epoch microseconds like a "
+                         "torch.profiler trace (open in ui.perfetto.dev or "
+                         "chrome://tracing)")
     ap.add_argument("--metrics-out", default=None, metavar="PATH",
                     help="write a Prometheus text snapshot of the unified "
                          "metrics registry at exit")
@@ -151,7 +153,8 @@ def main():
     if args.trace_out:
         from repro_torch.obs import validate_chrome_trace, write_chrome_trace
 
-        doc = write_chrome_trace(engine.obs.tracer, args.trace_out)
+        doc = write_chrome_trace(engine.obs.tracer, args.trace_out,
+                                 clock="unix")
         print(f"trace: {validate_chrome_trace(doc)} events "
               f"-> {args.trace_out}")
     if args.metrics_out:

@@ -12,7 +12,8 @@ single export call sees the whole request path::
     doc = chrome_trace(eng.obs.tracer)          # Perfetto-loadable JSON
     text = prometheus_text(eng.obs.registry)    # metrics snapshot
 
-See ``docs/observability.md`` for the span taxonomy and metric families.
+See ``docs/observability.md`` for the span taxonomy and metric families,
+and ``docs/observability_torch.md`` for the spans and counters the port adds.
 """
 
 from __future__ import annotations

@@ -6,8 +6,10 @@ snapshot into the Chrome Trace Event JSON format that Perfetto,
 emitted:
 
 * ``pid 1`` -- **wall clock**: every span, timestamped on the tracer's
-  shared ``perf_counter`` origin.  One thread (tid) per logical track
-  ("engine", "encoder", "chip0".., "pool", ...).
+  shared ``perf_counter`` origin (``clock="tracer"``), or in Unix-epoch
+  microseconds (``clock="unix"``, the timebase of ``torch.profiler``'s own
+  trace, so the two lay over each other).  One thread (tid) per logical
+  track ("engine", "encoder", "chip0".., "pool", ...).
 * ``pid 2`` -- **sim clock**: only spans that carry backend sim-clock
   stamps (farm drains and per-job spans, pool jobs), timestamped on the
   backend's simulated-hardware clock.  This is the track that shows chip
@@ -46,13 +48,25 @@ def _jsonable(v):
 
 def chrome_trace(tracer, *, t0: Optional[float] = None,
                  t1: Optional[float] = None,
-                 trace_id: Optional[int] = None) -> dict:
+                 trace_id: Optional[int] = None,
+                 clock: str = "tracer") -> dict:
     """Export (a window of) the tracer ring as Chrome Trace Event JSON.
 
     ``t0``/``t1`` bound the *wall-clock* window in tracer seconds (spans
     overlapping the window are kept); ``trace_id`` restricts to one
-    request.  Returns ``{"traceEvents": [...]}`` ready to ``json.dump``.
+    request.  ``clock`` stamps the wall-clock events on the tracer's origin
+    (``"tracer"``) or in Unix-epoch microseconds (``"unix"``, through
+    :meth:`~repro_torch.obs.trace.Tracer.to_unix_ns`).  Returns
+    ``{"traceEvents": [...]}`` ready to ``json.dump``.
     """
+    if clock == "tracer":
+        def wall_us(t):
+            return t * 1e6
+    elif clock == "unix":
+        def wall_us(t):
+            return tracer.to_unix_ns(t) / 1e3
+    else:
+        raise ValueError(f"clock must be 'tracer' or 'unix', got {clock!r}")
     records = tracer.records(trace_id)
     if t0 is not None:
         records = [r for r in records if r["t1"] >= t0]
@@ -87,12 +101,12 @@ def chrome_trace(tracer, *, t0: Optional[float] = None,
             events.append({
                 "ph": "i", "s": "t", "name": r["name"],
                 "pid": _WALL_PID, "tid": tid,
-                "ts": r["t0"] * 1e6, "args": args,
+                "ts": wall_us(r["t0"]), "args": args,
             })
             continue
         events.append({
             "ph": "X", "name": r["name"], "pid": _WALL_PID, "tid": tid,
-            "ts": r["t0"] * 1e6,
+            "ts": wall_us(r["t0"]),
             "dur": max(r["t1"] - r["t0"], 0.0) * 1e6,
             "args": args,
         })

@@ -42,6 +42,10 @@ only in the tracer's open-table), with keys::
     t0/t1  wall seconds on the tracer clock (perf_counter - origin)
     sim0/sim1  backend sim-clock seconds, or None
     attrs  dict of JSON-ish attributes
+
+The tracer clock maps onto Unix-epoch nanoseconds (the timebase of
+``torch.profiler``'s own events) through an anchor read at construction:
+:meth:`Tracer.to_unix_ns`.
 """
 
 from __future__ import annotations
@@ -158,6 +162,21 @@ class Span:
         return True
 
 
+def _clock_anchor(origin: float, tries: int = 3):
+    """(Unix ns, seconds from the anchor to ``origin``): ``perf_counter_ns``
+    read on both sides of ``time_ns``, the tightest of ``tries`` pairs, the
+    Unix reading taken at the midpoint of its two."""
+    best = None
+    for _ in range(tries):
+        p0 = time.perf_counter_ns()
+        unix = time.time_ns()
+        p1 = time.perf_counter_ns()
+        if best is None or p1 - p0 < best[0]:
+            best = (p1 - p0, unix, (p0 + p1) // 2)
+    _, unix, perf_ns = best
+    return unix, origin - perf_ns * 1e-9
+
+
 class Tracer:
     """Thread-safe span/event recorder over one bounded ring buffer."""
 
@@ -168,6 +187,7 @@ class Tracer:
         self._lock = threading.Lock()
         self._ids = 0
         self._origin = time.perf_counter()
+        self._unix_anchor_ns, self._anchor_offset_s = _clock_anchor(self._origin)
         self.dropped = 0
         self.opened = 0
         self.closed = 0
@@ -179,6 +199,10 @@ class Tracer:
     def now(self) -> float:
         """Wall seconds on the tracer clock (shared origin for all spans)."""
         return time.perf_counter() - self._origin
+
+    def to_unix_ns(self, t: float) -> int:
+        """Unix-epoch nanoseconds of tracer time ``t`` (seconds)."""
+        return self._unix_anchor_ns + round((t + self._anchor_offset_s) * 1e9)
 
     # ------------------------------------------------------------- spans
 
@@ -201,12 +225,14 @@ class Tracer:
                   parent: Optional[int] = None, track: str = "main",
                   t0: Optional[float] = None, t1: Optional[float] = None,
                   sim_t0: Optional[float] = None,
-                  sim_t1: Optional[float] = None, **attrs) -> None:
+                  sim_t1: Optional[float] = None, **attrs) -> Optional[int]:
         """Record an already-completed span in one call (opens and closes
         atomically, so it can never contribute to ``unclosed_spans``).
-        Backends use this to convert receipts into spans at commit time."""
+        Backends use this to convert receipts into spans at commit time.
+        Returns the span's id (None when disabled), for children recorded
+        after it."""
         if not self.enabled:
-            return
+            return None
         now = self.now()
         rec = {
             "kind": "span", "name": name, "trace": trace_id,
@@ -221,6 +247,7 @@ class Tracer:
             self.opened += 1
             self.closed += 1
             self._append_locked(rec)
+        return rec["id"]
 
     def event(self, name: str, *, trace_id: Optional[int] = None,
               parent: Optional[int] = None, track: str = "main",

@@ -205,6 +205,9 @@ class _Work:
     # Root trace span, opened when the driver adopts the request (stays
     # NULL_SPAN for queued-cancelled/evicted requests and disabled tracing).
     span: object = NULL_SPAN
+    # Tracer time the request entered the driver's queue (tracing on only):
+    # the start of its ``request.queue`` span.
+    t_enqueued: Optional[float] = None
 
 
 class SummarizationEngine:
@@ -283,6 +286,18 @@ class SummarizationEngine:
         # touches keys, instances, or scheduling) while the registry stays
         # live because the layers' stats() are views over it.
         self.obs = obs if obs is not None else Observability(tracing=tracing)
+        # The driver thread's meters, traced or not: wall seconds inside its
+        # rounds, and seconds its generators spent polling encode futures.
+        self._m_driver_busy = self.obs.registry.counter(
+            "engine_driver_busy_seconds_total",
+            "driver-thread wall seconds inside its rounds")
+        self._m_encode_wait = self.obs.registry.counter(
+            "engine_encode_wait_seconds_total",
+            "driver-thread seconds waiting on encode futures")
+        # The current round's encode polling and drain windows (tracer
+        # time), driver thread only.
+        self._round_encode_wait = 0.0
+        self._round_drains: List[tuple] = []
         self.encoder = encoder or HashedBowEncoder()
         # An EncoderStage (submit->future encoder) is the second pipeline
         # stage: _iter_one submits encode jobs and yields while they batch
@@ -691,6 +706,10 @@ class SummarizationEngine:
                 for work in works:
                     self.admission.on_done(work.req.request_id)
                 raise RuntimeError("engine is closed")
+            if self.obs.tracer.enabled:
+                t = self.obs.tracer.now()
+                for work in works:
+                    work.t_enqueued = t
             self._queue.extend(works)
             if self._driver is None:
                 self._driver = threading.Thread(
@@ -735,6 +754,7 @@ class SummarizationEngine:
         once per round, supply the manual-policy round barrier, resolve
         futures.  Runs until the engine is closed AND no work remains."""
         active: List[tuple] = []  # (generator, work)
+        tracer = self.obs.tracer
         while True:
             with self._new:
                 while not self._queue and not active and not self._closed:
@@ -742,8 +762,12 @@ class SummarizationEngine:
                 if self._closed and not self._queue and not active:
                     return
                 batch, self._queue = self._queue, []
+            t_round0 = tracer.now()
+            self._round_encode_wait = 0.0
+            self._round_drains = []
             for work in batch:
                 active.append((self._iter_one(work), work))
+            stepped = len(active)
             still: List[tuple] = []
             for gen, work in active:
                 try:
@@ -773,7 +797,7 @@ class SummarizationEngine:
                         if be.policy == "manual":
                             # Manual policy: the driver IS the round barrier
                             # -- one drain packs every active request's jobs.
-                            be.drain()
+                            self._drain(be)
                         else:
                             # Self-draining backends: tell the drive loop
                             # this round's burst is over (non-blocking);
@@ -785,9 +809,42 @@ class SummarizationEngine:
                         # error on their next step.  The driver must outlive
                         # it.
                         traceback.print_exc()
+            self._end_round(t_round0, adopted=len(batch),
+                            active=stepped, finished=stepped - len(active))
+
+    def _end_round(self, t_round0: float, **attrs) -> None:
+        """Meter one driver round: its encode polling, and its wall seconds,
+        exactly its ``engine.round`` span's t1 - t0.  The round and its
+        drains are recorded whole at its end (``emit_span``): a round
+        outlives the futures it resolves, and a span still open then would
+        read as unclosed to a caller that wakes on them."""
+        tracer = self.obs.tracer
+        t1 = tracer.now()
+        wait = self._round_encode_wait
+        if wait:
+            self._m_encode_wait.inc(wait)
+        self._m_driver_busy.inc(t1 - t_round0)
+        if tracer.enabled:
+            round_id = tracer.emit_span("engine.round", track="engine",
+                                        t0=t_round0, t1=t1,
+                                        encode_wait_s=wait, **attrs)
+            for d0, d1 in self._round_drains:
+                tracer.emit_span("engine.drain", parent=round_id,
+                                 track="engine", t0=d0, t1=d1)
+
+    def _drain(self, backend) -> None:
+        """One manual round barrier, its window kept for ``engine.drain``."""
+        tracer = self.obs.tracer
+        t0 = tracer.now()
+        try:
+            backend.drain()
+        finally:
+            self._round_drains.append((t0, tracer.now()))
 
     def _resolve(self, work: _Work, response: Optional[SummarizeResponse],
                  error: Optional[BaseException] = None) -> None:
+        tracer = self.obs.tracer
+        t0 = tracer.now() if work.span else 0.0
         # Realized completion feeds admission's estimate-error tracking, but
         # only on the primary backend's clock -- a pool-served request's
         # sim_completed lives on the pool's wall clock and would poison the
@@ -816,6 +873,11 @@ class SummarizationEngine:
             error.flight_log = tuple(
                 self.obs.recorder.dump(work.req.request_id))
         work.future._finish(response, error)
+        if work.span:
+            # Recorded whole once the future is finished (see _end_round).
+            tracer.emit_span("engine.resolve", trace_id=work.span.trace_id,
+                             parent=work.span.span_id, track="engine",
+                             t0=t0, t1=tracer.now())
 
     def _iter_one(self, work: _Work):
         """Generator serving one request; yields once per backend round."""
@@ -837,6 +899,12 @@ class SummarizationEngine:
         )
         tracer.register_root(req.request_id, span)
         work.span = span
+        if work.t_enqueued is not None:
+            tracer.emit_span(
+                "request.queue", trace_id=req.request_id,
+                parent=span.span_id, track="engine",
+                t0=work.t_enqueued, t1=span.t0,
+            )
         items = req.items
         m = req.kofn.m
         cfg = self.cfg
@@ -876,9 +944,15 @@ class SummarizationEngine:
             # encode: other requests' Ising rounds keep draining, so encode
             # of this request overlaps anneal of its neighbours.  The short
             # bounded wait keeps the manual-policy round loop from
-            # hot-spinning without stalling it a full encode.
-            while not efut.wait(0.002) or (qfut is not None
-                                           and not qfut.wait(0.002)):
+            # hot-spinning without stalling it a full encode.  The seconds
+            # spent inside the waits are the driver's encode polling.
+            while True:
+                t_wait = time.perf_counter()
+                ready = efut.wait(0.002) and (qfut is None
+                                              or qfut.wait(0.002))
+                self._round_encode_wait += time.perf_counter() - t_wait
+                if ready:
+                    break
                 yield
             e = efut.result()
             rcpt = efut.receipt()
@@ -908,7 +982,9 @@ class SummarizationEngine:
                 t0=t_enc_w0, t1=tracer.now(),
                 n_texts=len(texts), staged=self.stage is not None,
             )
-        problem = problem_from_embeddings(req.kofn, items, e, device=self.device)
+        with span.child("engine.scores"):
+            problem = problem_from_embeddings(req.kofn, items, e,
+                                              device=self.device)
         if problem.n > COBI_MAX_SPINS and not cfg.decompose:
             cfg = dataclasses.replace(cfg, decompose=True)
         backend_used = None
@@ -938,6 +1014,7 @@ class SummarizationEngine:
                 problem, work.key, cfg, backend=backend,
                 priority=req.priority, deadline=eff_deadline,
                 tag=req.request_id, route=route_hook, recovery=recovery,
+                span=span,
             )
             if self.router is not None:
                 if report.backend_jobs:  # window-routed: dominant backend
